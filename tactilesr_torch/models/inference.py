@@ -1,0 +1,210 @@
+"""Serving-specialized TactileSR forward: the same function, a rewritten graph.
+
+Exact rewrites applied once at load time (host-side, f32), as in
+``tactilesr_tpu/models/inference.py``:
+
+1. **BatchNorm folding**: eval-mode BN is the affine map
+   ``(x - mean) * scale / sqrt(var + eps) + bias``; it folds into the
+   preceding conv's kernel and bias, so the serving graph has no BN.
+2. **Parallel-kernel merging**: MSRB's parallel 3x3 and 5x5 convs over the
+   same input become one 5x5 conv (the 3x3 kernel zero-embedded, output
+   channels stacked); its output *is* the concat.
+3. **Concat-input splitting**: ``conv(cat(a, b)) == conv_a(a) + conv_b(b)``
+   with the kernel split along input channels (bias on one half); applied
+   to MSRB's confusion 1x1, the head's first conv and the branch fuse.
+
+Only the ``per_seq`` branch layout is ported (one branch stack per
+sequence frame, which is the whole story for STSR).  Kernels are stored in
+the compute dtype and biases in f32, cast to the activation dtype at the
+add.  Convolutions are ``F.conv2d`` in NCHW.
+
+:func:`fold_inference_params` takes the port's ``TactileSR`` state_dict
+(the reference layout); :func:`tactile_sr_infer` is the forward.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.resize import resize_bilinear_nchw, upsample_bilinear
+
+__all__ = ["fold_inference_params", "tactile_sr_infer"]
+
+_EPS = 1e-5  # torch BatchNorm2d default
+
+
+class _Reader:
+    """A state_dict view that records which keys the fold read."""
+
+    def __init__(self, sd: dict):
+        self.sd = sd
+        self.read: set = set()
+
+    def __call__(self, key: str) -> torch.Tensor:
+        self.read.add(key)
+        return self.sd[key].detach().to("cpu", torch.float32)
+
+
+def _check_all_consumed(sd: dict, read: set, hint: str) -> None:
+    """Refuse a checkpoint with modules the requested architecture does not
+    read (e.g. pattern_layers=1 on a 6-layer checkpoint would otherwise
+    fold a truncated network and serve garbage)."""
+    extra = sorted(
+        {k.rsplit(".", 1)[0] for k in sd if k not in read and not k.endswith("num_batches_tracked")}
+    )
+    if extra:
+        raise ValueError(
+            f"checkpoint contains modules the requested architecture does "
+            f"not consume: {extra} -- {hint}"
+        )
+
+
+def _fold_bn(rd: _Reader, conv: str, bn: str, has_bias: bool = False):
+    """Fold eval-mode BN ``bn`` into conv ``conv`` -> (kernel OIHW, bias)."""
+    k = rd(f"{conv}.weight")
+    s = rd(f"{bn}.weight") / torch.sqrt(rd(f"{bn}.running_var") + _EPS)
+    b = rd(f"{conv}.bias") if has_bias else torch.zeros(k.shape[0])
+    b = (b - rd(f"{bn}.running_mean")) * s + rd(f"{bn}.bias")
+    return k * s[:, None, None, None], b
+
+
+def _embed_3_in_5(k3: torch.Tensor) -> torch.Tensor:
+    """Zero-embed an OIHW 3x3 kernel at the center of a 5x5 window."""
+    out = torch.zeros(k3.shape[0], k3.shape[1], 5, 5)
+    out[:, :, 1:4, 1:4] = k3
+    return out
+
+
+def _fold_msrb(rd: _Reader, src: str, pre: str, out: dict) -> None:
+    def fold(name):
+        return _fold_bn(rd, f"{src}.{name}.0", f"{src}.{name}.1", has_bias=True)
+
+    k3, b3 = fold("conv_3_1")
+    k5, b5 = fold("conv_5_1")
+    out[f"{pre}/stage1/k"] = torch.cat([_embed_3_in_5(k3), k5], dim=0)
+    out[f"{pre}/stage1/b"] = torch.cat([b3, b5])
+    out[f"{pre}/conv32/k"], out[f"{pre}/conv32/b"] = fold("conv_3_2")
+    out[f"{pre}/conv52/k"], out[f"{pre}/conv52/b"] = fold("conv_5_2")
+    ck = rd(f"{src}.confusion.weight")
+    half = ck.shape[1] // 2
+    out[f"{pre}/conf/k32"] = ck[:, :half]
+    out[f"{pre}/conf/k52"] = ck[:, half:]
+    out[f"{pre}/conf/b"] = rd(f"{src}.confusion.bias")
+
+
+def fold_inference_params(
+    state_dict: dict,
+    *,
+    seqs_cnt: int = 1,
+    pattern_layers: int = 6,
+    force_layers: int = 1,
+    dtype: torch.dtype = torch.bfloat16,
+    device="cpu",
+) -> dict:
+    """Rewrite a TactileSR state_dict into the fused serving layout.
+
+    Returns a flat dict of tensors on ``device``: kernels (OIHW) in
+    ``dtype``, biases in f32 (cast to the activation dtype at the add).
+    Raises ``KeyError`` on a missing parameter and ``ValueError`` when the
+    checkpoint holds modules the requested architecture would not read.
+    """
+    rd = _Reader(state_dict)
+    out: dict = {}
+    for s in range(seqs_cnt):
+        base = f"inputLayer_pattern_list.{s}"
+        for idx, (conv_i, bn_i) in enumerate([(1, 2), (4, 5)]):
+            k, b = _fold_bn(rd, f"{base}.{conv_i}", f"{base}.{bn_i}")
+            out[f"inputLayer_pattern_{s}_conv{idx}/k"] = k
+            out[f"inputLayer_pattern_{s}_conv{idx}/b"] = b
+    ick, icb = _fold_bn(rd, "inputContact_layer.0", "inputContact_layer.1")
+    for s in range(seqs_cnt):  # the fuse conv reads cat(branch_0..): split it
+        out[f"inputContact/k{s}"] = ick[:, s * 64:(s + 1) * 64]
+    out["inputContact/b"] = icb
+
+    for i in range(pattern_layers):
+        _fold_msrb(rd, f"patternFeatureExtra_layer.{i}", f"msrb_{i}", out)
+
+    out["force_in/k"] = rd("input_layer_force.1.weight")
+    for i in range(force_layers):
+        src = f"forceFeatureExtra_layer.{i}"
+        for c in ("conv1", "conv2"):
+            out[f"res_{i}/{c}/k"] = rd(f"{src}.{c}.weight")
+            out[f"res_{i}/{c}/b"] = rd(f"{src}.{c}.bias")
+
+    hk = rd("output_layer.0.weight")  # reads cat(force, pattern): split
+    out["head0/kf"] = hk[:, :64]
+    out["head0/kp"] = hk[:, 64:]
+    out["head1/k"] = rd("output_layer.2.weight")
+
+    _check_all_consumed(
+        state_dict, rd.read,
+        f"do seqs_cnt={seqs_cnt}, pattern_layers={pattern_layers}, "
+        f"force_layers={force_layers} match the trained architecture?",
+    )
+    return {
+        k: v.to(device, dtype if k.rsplit("/", 1)[-1].startswith("k") else torch.float32).contiguous()
+        for k, v in out.items()
+    }
+
+
+def _conv(x, kernel, bias=None, *, pad: int):
+    return F.conv2d(x, kernel, None if bias is None else bias.to(x.dtype), padding=pad)
+
+
+def _msrb_infer(folded: dict, pre: str, x):
+    mid = torch.relu(_conv(x, folded[f"{pre}/stage1/k"], folded[f"{pre}/stage1/b"], pad=2))
+    o32 = torch.relu(_conv(mid, folded[f"{pre}/conv32/k"], folded[f"{pre}/conv32/b"], pad=1))
+    o52 = torch.relu(_conv(mid, folded[f"{pre}/conv52/k"], folded[f"{pre}/conv52/b"], pad=2))
+    conf = (
+        _conv(o32, folded[f"{pre}/conf/k32"], pad=0)
+        + _conv(o52, folded[f"{pre}/conf/k52"], pad=0)
+        + folded[f"{pre}/conf/b"].to(o32.dtype)[:, None, None]
+    )
+    return torch.relu(conf + x)
+
+
+@torch.no_grad()
+def tactile_sr_infer(
+    folded: dict,
+    x: torch.Tensor,
+    *,
+    scale_factor: int = 10,
+    seqs_cnt: int = 1,
+    axis_cnt: int = 3,
+    pattern_layers: int = 6,
+    force_layers: int = 1,
+) -> torch.Tensor:
+    """Fused serving forward: (B, seqs*axis, 4, 4) f32 -> (B, 1, 4s, 4s) f32.
+
+    The same function as ``TactileSR.eval()(x)``; ``folded`` comes from
+    :func:`fold_inference_params` and sets the compute dtype."""
+    dt = folded["head1/k"].dtype
+    relu = torch.relu
+    x = x.float()
+
+    acc = None
+    for s in range(seqs_cnt):
+        xs = upsample_bilinear(x[:, s * axis_cnt:(s + 1) * axis_cnt], scale_factor).to(dt)
+        h = relu(_conv(xs, folded[f"inputLayer_pattern_{s}_conv0/k"],
+                       folded[f"inputLayer_pattern_{s}_conv0/b"], pad=1))
+        h = relu(_conv(h, folded[f"inputLayer_pattern_{s}_conv1/k"],
+                       folded[f"inputLayer_pattern_{s}_conv1/b"], pad=1))
+        c = _conv(h, folded[f"inputContact/k{s}"], pad=1)
+        acc = c if acc is None else acc + c
+    pattern = relu(acc + folded["inputContact/b"].to(acc.dtype)[:, None, None])
+
+    for i in range(pattern_layers):
+        pattern = _msrb_infer(folded, f"msrb_{i}", pattern)
+
+    force = upsample_bilinear(x[:, :axis_cnt], scale_factor).to(dt)
+    force = relu(_conv(force, folded["force_in/k"], pad=1))
+    for i in range(force_layers):
+        y = relu(_conv(force, folded[f"res_{i}/conv1/k"], folded[f"res_{i}/conv1/b"], pad=1))
+        y = _conv(y, folded[f"res_{i}/conv2/k"], folded[f"res_{i}/conv2/b"], pad=1)
+        force = relu(force + y)
+
+    out = relu(_conv(force, folded["head0/kf"], pad=1) + _conv(pattern, folded["head0/kp"], pad=1))
+    out = relu(_conv(out, folded["head1/k"], pad=1))
+    hw = 4 * scale_factor
+    return resize_bilinear_nchw(out, (hw, hw)).float()

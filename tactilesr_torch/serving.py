@@ -1,0 +1,210 @@
+"""Serving: batched SR inference from a checkpoint.
+
+``SRPredictor`` loads a port ``.pth`` bundle, folds it into the fused
+serving graph (``models/inference.py``; ``fused=False`` serves the layer-by-
+layer eval forward instead), keeps the weights on the device, and streams
+(N, C, 4, 4) readings to (N, 1, 4s, 4s) contact-pressure maps.  Requests are
+padded up to a fixed set of batch buckets, and larger ones are split into
+chunks of the largest bucket, so the device only ever sees those shapes.
+Compute runs in bf16 by default; the output is f32.
+
+    python -m tactilesr_torch.serving --checkpoint x.pth --input frames.npz --output sr.npz
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .models.inference import fold_inference_params, tactile_sr_infer
+from .models.tactile_sr import TactileSR
+from .runtime.checkpoint import load_checkpoint_file
+from .runtime.device import resolve_device
+
+__all__ = ["SRPredictor", "DEFAULT_BUCKETS"]
+
+logger = logging.getLogger("tactilesr_torch")
+
+DEFAULT_BUCKETS = (1, 8, 64, 256, 1024)
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _spec(tensors: dict) -> dict:
+    """{name: (shape, dtype)}: the fingerprint a hot-swapped checkpoint must match."""
+    return {k: (tuple(v.shape), v.dtype) for k, v in tensors.items()}
+
+
+class SRPredictor:
+    """TactileSR inference with batch bucketing on one device."""
+
+    def __init__(
+        self,
+        checkpoint_path: str,
+        scale_factor: int = 10,
+        seqs_cnt: int = 1,
+        axis_cnt: int = 3,
+        pattern_layers: int = 6,
+        force_layers: int = 1,
+        compute_dtype: str = "bfloat16",
+        buckets: Sequence[int] = DEFAULT_BUCKETS,
+        fused: bool = True,
+        device="cuda",
+    ):
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {compute_dtype!r}")
+        self.device = resolve_device(device)
+        self.dtype = COMPUTE_DTYPES[compute_dtype]
+        self.in_channels = seqs_cnt * axis_cnt
+        self.buckets = tuple(sorted(buckets))
+        self.fused = fused
+        self._arch = dict(scale_factor=scale_factor, seqs_cnt=seqs_cnt, axis_cnt=axis_cnt)
+        self._pattern_layers = pattern_layers
+        self._force_layers = force_layers
+        self._weights = None
+        self._load_weights(checkpoint_path)
+        logger.info("SRPredictor ready: %s (buckets %s, fused=%s, %s on %s)",
+                    checkpoint_path, self.buckets, fused, compute_dtype, self.device)
+
+    def _build(self, state_dict: dict):
+        """The serving state for one checkpoint: folded tensors (fused) or an
+        eval-mode TactileSR (unfused), on the device."""
+        if self.fused:
+            return fold_inference_params(
+                state_dict, seqs_cnt=self._arch["seqs_cnt"],
+                pattern_layers=self._pattern_layers, force_layers=self._force_layers,
+                dtype=self.dtype, device=self.device,
+            )
+        model = TactileSR(
+            pattern_feature_extra_layer_cnt=self._pattern_layers,
+            force_feature_extra_layer_cnt=self._force_layers, dtype=self.dtype, **self._arch,
+        )
+        try:
+            model.load_state_dict(state_dict, strict=True)
+        except RuntimeError as e:  # missing, unexpected or mis-shaped keys
+            raise KeyError(str(e)) from e
+        return model.to(self.device).eval()
+
+    def _load_weights(self, checkpoint_path: str) -> None:
+        """Load (or hot-swap) weights.  All work happens on locals and the
+        weights are rebound only after every check passed, so a refused
+        checkpoint leaves the previous weights serving."""
+        state_dict = load_checkpoint_file(checkpoint_path)["model"]
+        try:
+            new = self._build(state_dict)
+        except KeyError as e:
+            raise KeyError(
+                f"checkpoint {checkpoint_path!r} does not fit the serving architecture "
+                f"(seqs_cnt={self._arch['seqs_cnt']}, pattern_layers={self._pattern_layers}, "
+                f"force_layers={self._force_layers}): {e}"
+            ) from e
+        spec = _spec(new if self.fused else new.state_dict())
+        if self._weights is not None and spec != self._spec:
+            raise ValueError(
+                f"checkpoint {checkpoint_path!r} does not match the serving architecture "
+                "(different parameter shapes); previous weights keep serving"
+            )
+        self._spec = spec
+        self._weights = new  # one rebind: predict() snapshots it per request
+
+    def reload_checkpoint(self, checkpoint_path: str) -> None:
+        """Hot-swap weights on a live predictor; a mismatched checkpoint
+        raises and the previous weights keep serving."""
+        self._load_weights(checkpoint_path)
+        logger.info("SRPredictor weights hot-swapped from %s", checkpoint_path)
+
+    @torch.no_grad()
+    def _forward(self, w, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return tactile_sr_infer(
+                w, x, pattern_layers=self._pattern_layers, force_layers=self._force_layers,
+                **self._arch,
+            )
+        return w(x)
+
+    def warmup(self) -> None:
+        """Run every bucket once (cuDNN picks its algorithms on first use)."""
+        w = self._weights
+        for b in self.buckets:
+            self._forward(w, torch.zeros((b, self.in_channels, 4, 4), device=self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _bucket(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.buckets[-1]
+
+    def predict(self, lr: np.ndarray) -> np.ndarray:
+        """(N, C, 4, 4) raw-scaled readings -> (N, 1, 4s, 4s) SR maps (f32)."""
+        lr = np.asarray(lr, np.float32)
+        if lr.ndim != 4 or lr.shape[1:] != (self.in_channels, 4, 4):
+            raise ValueError(f"expected (N, {self.in_channels}, 4, 4), got {lr.shape}")
+        n = lr.shape[0]
+        w = self._weights  # one snapshot for the whole request
+        outs = []
+        i = 0
+        while i < n:
+            b = self._bucket(n - i)
+            chunk = lr[i:i + b]
+            take = chunk.shape[0]
+            if take < b:
+                chunk = np.concatenate([chunk, np.zeros((b - take,) + chunk.shape[1:], np.float32)])
+            x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+            outs.append(self._forward(w, x)[:take].cpu().numpy())
+            i += take
+        if not outs:
+            hw = 4 * self._arch["scale_factor"]
+            return np.zeros((0, 1, hw, hw), np.float32)
+        return np.concatenate(outs)
+
+
+def _cli(argv=None):
+    import argparse
+    import json
+    import time
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    p = argparse.ArgumentParser(prog="python -m tactilesr_torch.serving",
+                                description="Batched SR inference from a port checkpoint")
+    p.add_argument("--checkpoint", required=True, help="port .pth bundle")
+    p.add_argument("--input", required=True, help=".npz with an 'LR' array")
+    p.add_argument("--output", default=None, help=".npz to write 'SR' maps to")
+    p.add_argument("--seqs-cnt", type=int, default=1)
+    p.add_argument("--scale-factor", type=int, default=10)
+    p.add_argument("--pattern-layers", type=int, default=6)
+    p.add_argument("--force-layers", type=int, default=1)
+    p.add_argument("--compute-dtype", default="bfloat16", choices=sorted(COMPUTE_DTYPES))
+    p.add_argument("--no-fused", action="store_true",
+                   help="serve the layer-by-layer eval forward instead of the fused graph")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    with np.load(args.input) as z:
+        lr = z["LR"]
+    pred = SRPredictor(
+        args.checkpoint, scale_factor=args.scale_factor, seqs_cnt=args.seqs_cnt,
+        pattern_layers=args.pattern_layers, force_layers=args.force_layers,
+        compute_dtype=args.compute_dtype, fused=not args.no_fused, device=args.device,
+    )
+    pred.warmup()
+    t0 = time.perf_counter()
+    sr = pred.predict(lr)  # returns host arrays: the device work is done
+    dt = time.perf_counter() - t0
+    print(json.dumps({
+        "frames": int(lr.shape[0]),
+        "seconds": dt,
+        "frames_per_sec": lr.shape[0] / dt if dt > 0 else None,
+        "output_shape": list(sr.shape),
+        "device": str(pred.device),
+    }))
+    if args.output:
+        np.savez(args.output, SR=sr)
+        logger.info("wrote %s", args.output)
+
+
+if __name__ == "__main__":
+    _cli()
