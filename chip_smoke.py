@@ -8,15 +8,28 @@ Phases (any failure exits non-zero and prints no result line):
 2. kernel     -- the tPSF physics kernel vs its plain PyTorch version at
                  B in {1, 5, 256, 8192} (TF32 off for the plain version;
                  HR rtol/atol 1e-4, LR rtol 1e-4 / atol 1e-6)
-3. generation -- ``generate synthetic`` (3 blobs of 81 taps), a seeded
-                 TPSFNet saved as .pth, ``generate single --sample-cnt 4
-                 --batch 256``; the kernel's launch count must rise and the
-                 outputs must be finite and match the plain physics
-4. serving    -- a seeded full-width STSR (scale 10, 6 MSRB, 1 ResBlock,
+3. training   -- ``generate synthetic`` (3 blobs of 81 taps), then stage 1
+                 through its entry (``tasks/tpsf_task.py``) at the recipe's
+                 defaults for 2 epochs (7,296 samples, batch 256, bf16 MLP),
+                 the last epoch timed on the host clock (samples/s);
+                 both kernel wrappers' counts must rise by at least the step
+                 count, every loss and the eval metric must be finite, every
+                 parameter must move, ``latest.pth`` must exist, the
+                 alpha/beta curves must be finite; then the wrapper's
+                 gradients (kernel forward, recompute backward) vs autograd
+                 through the plain physics at B=256 (rtol 1e-3, atol 1e-6)
+4. generation -- ``generate single --sample-cnt 4 --batch 256`` from the
+                 checkpoint that training wrote; the kernel's launch count
+                 must rise and the outputs must be finite and match the
+                 plain physics
+5. serving    -- a seeded full-width STSR (scale 10, 6 MSRB, 1 ResBlock,
                  perturbed BN stats) served by SRPredictor in bf16 for three
                  requests, held against the f32 eval forward; fused f32 vs
                  unfused f32; hot swap and refusal
-5. times      -- kernel and plain times at B=256 and B=8192 (CUDA events),
+6. times      -- kernel and plain times at B=256 and B=8192 (CUDA events);
+                 the train step at B=256 split into the physics forward, its
+                 recompute backward, the optimizer and the whole step (CUDA
+                 events) and the card's busy time in them (torch.profiler);
                  SRPredictor frames/s at bucket 1024
 
 The second-to-last line is the per-kernel JSON record, the line before it
@@ -36,19 +49,25 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from tactilesr_torch.config import tPSFNet_config  # noqa: E402
 from tactilesr_torch.data import generate  # noqa: E402
+from tactilesr_torch.data.datasets import SingleTapSeqsDataset  # noqa: E402
 from tactilesr_torch.models.inference import fold_inference_params, tactile_sr_infer  # noqa: E402
 from tactilesr_torch.models.tactile_sr import TactileSR  # noqa: E402
 from tactilesr_torch.models.tpsf_net import TPSFNet  # noqa: E402
 from tactilesr_torch.ops import cuda as tcuda  # noqa: E402
-from tactilesr_torch.ops.psf import physics_plain  # noqa: E402
-from tactilesr_torch.runtime.checkpoint import save_checkpoint_file  # noqa: E402
+from tactilesr_torch.ops.psf import f32_matmul, physics_plain  # noqa: E402
+from tactilesr_torch.runtime.checkpoint import load_checkpoint_file, save_checkpoint_file  # noqa: E402
+from tactilesr_torch.runtime.hooks import HookBase  # noqa: E402
 from tactilesr_torch.serving import SRPredictor  # noqa: E402
+from tactilesr_torch.tasks import tpsf_task  # noqa: E402
 
 HR_TOL = dict(rtol=1e-4, atol=1e-4)
 LR_TOL = dict(rtol=1e-4, atol=1e-6)
 KERNEL_BATCHES = (1, 5, 256, 8192)
-MAIN_BATCH = 256  # generate single --batch 256: the kernel's shape on the main path
+MAIN_BATCH = 256  # generate single --batch 256 and the recipe's train batch
+GRAD_TOL = dict(rtol=1e-3, atol=1e-6)  # tests/test_pallas_kernels.py:45
+TRAIN_EPOCHS = 2
 # bf16 serving vs the f32 eval forward: bf16 keeps 8 significant bits, and
 # rounding compounds through ~25 conv layers (about 2% of the output range
 # measured on the CPU); allow 5% of the output range
@@ -99,12 +118,8 @@ def physics_inputs(b, dev, seed=0):
 
 
 def plain_f32(depth, abm):
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with f32_matmul():
         return physics_plain(depth, abm)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -126,6 +141,24 @@ def tpsf_bound_ms(b):
     band = sum(min(99, i + 49) - max(0, i - 49) + 1 for i in range(100))  # 7,450 taps of A
     flops = 2 * 2 * band * 100 + 2 * (4 * 100 * 100 + 4 * 4 * 100)  # A.D.A^T + U.HR.U^T
     nbytes = 4 * (100 * 100 + 3 + 100 * 100 + 16)
+    t_ops = b * flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = b * nbytes / PEAK_HBM_BPS * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def fused_bound_ms(b):
+    """Least time for the function the wrapper computes, forward and abm
+    gradient, at B samples.  Operations: the banded forward once (the
+    kernel's count), the three banded products of the abm backward with
+    P = A D, M = P A^T (dP = dM A, and dA = dM^T P + dP D^T over the band
+    only), and the degradation's backward (to HR, and to m through U H and
+    U H^T) at twice its forward; elementwise work is left out.  Over the
+    f32 peak, against depth and abm in, HR and LR out, the LR cotangent in
+    and the abm gradient out, once each, over HBM bandwidth."""
+    band = sum(min(99, i + 49) - max(0, i - 49) + 1 for i in range(100))  # 7,450 taps of A
+    degrade = 2 * (4 * 100 * 100 + 4 * 4 * 100)
+    flops = (2 * 2 * band * 100 + degrade) + 3 * 2 * band * 100 + 2 * degrade
+    nbytes = 4 * (100 * 100 + 3 + 100 * 100 + 16 + 16 + 3)
     t_ops = b * flops / PEAK_F32_FLOPS * 1e3
     t_bytes = b * nbytes / PEAK_HBM_BPS * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -164,20 +197,129 @@ def phase_kernel(dev):
     return errs
 
 
-def phase_generation(work, dev):
+def _grad_parity(dev, b=MAIN_BATCH):
+    """The wrapper's gradients against autograd through the plain physics
+    (TF32 off) at the recipe's batch.  The loss reads the forward's LR, so
+    the kernel's output feeds the cotangent.  Returns max |d grad|."""
+    depth, abm = physics_inputs(b, dev, seed=77)
+    g = torch.Generator().manual_seed(78)
+    w_hr = torch.randn(b, 100, 100, generator=g).to(dev)
+    target = torch.randn(b, 4, 4, generator=g).to(dev) * 1e-3
+
+    def loss(hr, lr):
+        return 0.5 * ((lr - target) ** 2).sum() + 1e-6 * (w_hr * hr).sum()
+
+    d_k, a_k = depth.clone().requires_grad_(True), abm.clone().requires_grad_(True)
+    loss(*tcuda.tpsf_physics_fused(d_k, a_k)).backward()
+    d_p, a_p = depth.clone().requires_grad_(True), abm.clone().requires_grad_(True)
+    with f32_matmul():
+        loss(*physics_plain(d_p, a_p)).backward()
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want in (("abm", a_k.grad, a_p.grad), ("depth", d_k.grad, d_p.grad)):
+        torch.testing.assert_close(got, want, **GRAD_TOL,
+                                   msg=lambda m, n=name: f"{n} gradient, kernel vs plain: {m}")
+        errs[name] = float((got - want).abs().max())
+        log(f"[training] B={b} {name} gradient: kernel fwd + recompute bwd vs plain autograd "
+            f"max|d|={errs[name]:.3e} (max |grad| {float(want.abs().max()):.3e}; rtol 1e-3, "
+            "atol 1e-6) ok")
+    return max(errs.values())
+
+
+class EpochClock(HookBase):
+    """Host clock around each training epoch, the card synced at both ends.
+    Registered last, so an epoch's eval and checkpoint fall inside it."""
+
+    priority = 10
+
+    def __init__(self):
+        self.seconds = []
+
+    def before_epoch(self):
+        torch.cuda.synchronize()
+        self._t0 = time.perf_counter()
+
+    def after_epoch(self):
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - self._t0)
+
+
+def phase_training(work, dev):
     raw = os.path.join(work, "raw")
     generate._cli(["synthetic", "--out-dir", raw, "--names", "C", "I", "P",
                    "--taps-per-blob", "81", "--seed", "0"])
-    tpsf = TPSFNet(generator=torch.Generator().manual_seed(7))
-    ckpt = save_checkpoint_file(os.path.join(work, "tpsf.pth"), tpsf.state_dict())
-    out_dir = os.path.join(work, "SRdataset")
+    save_dir = os.path.join(work, "tpsf_train")
+    argv = ["--dataset_dir", raw, "--save_dir", save_dir, "--epochs", str(TRAIN_EPOCHS),
+            "--inference_test", "false"]
+    init = tpsf_task.build_model(tPSFNet_config).state_dict()  # the entry's seeded init
 
+    clock = EpochClock()
+    tcuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = tpsf_task._cli(argv, hooks=[clock])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(tcuda.launch_counts)
+
+    cfg = trainer.config
+    recipe = {k: cfg[k] for k in ("train_batch_size", "sample_cnt", "lr", "lr_scheduler_step_size",
+                                  "lr_scheduler_gamma", "weight_decay", "compute_dtype",
+                                  "test_batch_size", "device", "use_pallas_physics")}
+    check(recipe == {k: tPSFNet_config[k] for k in recipe}, f"not the recipe's defaults: {recipe}")
+    check(trainer.model.dtype == torch.bfloat16, "the MLP does not compute in bf16")
+    check((trainer.n_train, trainer.epoch_len) == (7296, 29),
+          f"expected 7,296 train samples in 29 steps, got {trainer.n_train} in {trainer.epoch_len}")
+    steps = trainer.step
+    check(steps == TRAIN_EPOCHS * trainer.epoch_len, f"{steps} optimizer steps")
+    for name in ("tpsf_physics", "tpsf_physics_fused"):
+        check(launches[name] >= steps,
+              f"{name} launched {launches[name]} times in {steps} training steps: {launches}")
+    losses = trainer.metric_storage["total_loss"]
+    check(len(losses) == steps and np.isfinite(losses.global_sum),
+          f"losses: {len(losses)} logged, global sum {losses.global_sum}")
+    eval_mse = trainer.metric_storage["Eval Metric"].latest
+    check(np.isfinite(eval_mse), f"eval mse_loss_ave {eval_mse}")
+    trained = trainer.model.state_dict()
+    for k, v in init.items():
+        moved = (trained[k].cpu() - v).abs()
+        check(float(moved.max()) > 0, f"parameter {k} did not move")
+        log(f"[training] {k}: max|moved| {float(moved.max()):.3e}, "
+            f"{float((moved > 0).float().mean()) * 100:.2f}% of elements moved")
+    ckpt = os.path.join(save_dir, "checkpoints", "latest.pth")
+    check(os.path.exists(ckpt), f"{ckpt} missing")
+    check(load_checkpoint_file(ckpt)["epoch"] == TRAIN_EPOCHS - 1, "latest.pth is not the last epoch")
+
+    hook = tpsf_task.InferenceHookTPSF(None, None, scale_num=cfg["scale_num"])
+    for name in ("I", "P"):
+        lr_s, depth_s = SingleTapSeqsDataset(os.path.join(raw, f"{name}.npy"),
+                                             [cfg["inference_index"]], cfg["sample_cnt"]).stacked()
+        force, alpha, beta = hook._curves({"LR": lr_s, "depth": depth_s}, trainer.model)
+        check(all(np.isfinite(x).all() for x in (force, alpha, beta)), f"{name} curves not finite")
+        log(f"[training] {name} alpha/beta curves over {len(force)} presses: alpha "
+            f"{alpha.min():.4g}..{alpha.max():.4g}, beta {beta.min():.4g}..{beta.max():.4g} ok")
+
+    check(len(clock.seconds) == TRAIN_EPOCHS, f"epoch clock read {clock.seconds}")
+    epoch_s = clock.seconds[-1]
+    log(f"[training] {TRAIN_EPOCHS} epochs x {trainer.epoch_len} steps at B={cfg['train_batch_size']} "
+        f"in {wall:.2f} s (entry wall clock, data preparation included); mean loss "
+        f"{losses.global_avg:.6g}, last {losses.latest:.6g}; eval mse_loss_ave {eval_mse:.6g}; "
+        f"launches {launches}")
+    log(f"[training] epoch seconds {clock.seconds}; the last: {trainer.n_train} samples in "
+        f"{trainer.epoch_len} steps, {epoch_s:.4f} s = {trainer.n_train / epoch_s:.1f} samples/s "
+        "(host clock, card synced at both ends, the epoch's checkpoint included)")
+    grad_err = _grad_parity(dev)
+    return trainer, raw, ckpt, launches, grad_err, trainer.n_train / epoch_s
+
+
+def phase_generation(work, dev, raw, ckpt):
+    out_dir = os.path.join(work, "SRdataset")
     tcuda.reset_launch_counts()
     generate._cli(["single", "--tpsf-checkpoint", ckpt, "--raw-dir", raw, "--out-dir", out_dir,
                    "--sample-cnt", "4", "--batch", str(MAIN_BATCH)])
     torch.cuda.synchronize()
     launches = dict(tcuda.launch_counts)
-    check(launches["tpsf_physics"] > 0, f"generate single launched no kernel: {launches}")
+    for name in ("tpsf_physics", "tpsf_physics_fused"):
+        check(launches[name] > 0, f"generate single launched no {name}: {launches}")
 
     total = 0
     for split in ("train", "validation", "test"):
@@ -195,16 +337,11 @@ def phase_generation(work, dev):
     with np.load(os.path.join(out_dir, "SRdataset_test.npz")) as z:
         lr, depth, hr, deg = z["LR"], z["depth"], z["HR"], z["LR_degrade"]
     ref = TPSFNet(use_kernel=False)
-    ref.load_state_dict(tpsf.state_dict())
+    ref.load_state_dict(load_checkpoint_file(ckpt)["model"])
     ref = ref.to(dev).eval()
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.no_grad():
-            hr_r, deg_r, _, _ = ref(torch.from_numpy(lr).to(dev), torch.from_numpy(depth).to(dev),
-                                    return_psf=False)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+    with torch.no_grad(), f32_matmul():
+        hr_r, deg_r, _, _ = ref(torch.from_numpy(lr).to(dev), torch.from_numpy(depth).to(dev),
+                                return_psf=False)
     torch.testing.assert_close(torch.from_numpy(hr), hr_r.cpu(), **HR_TOL)
     torch.testing.assert_close(torch.from_numpy(deg), deg_r.cpu(), **LR_TOL)
     log("[generation] test split matches the plain physics (HR 1e-4, LR 1e-6) ok")
@@ -296,6 +433,79 @@ def phase_serving(work, dev, test_lr, n_big=1500):
     return pred
 
 
+def device_profile(fn, n=5):
+    """One torch.profiler trace of ``n`` calls: the device's busy ms per call
+    (the kernels' and copies' own device times summed; None when the trace
+    holds no device time), device ops per call, and the five largest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    # GPU-side user annotations (e.g. "Optimizer.step#Adam.step") span the
+    # kernels inside them: counting them would count those kernels twice
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / n
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    return dict(busy_ms=busy if busy > 0 else None,
+                kernels=sum(e.count for e in dev) / n,
+                top=[(e.key[:60], round(e.self_device_time_total / 1e3 / n, 4)) for e in top])
+
+
+def phase_train_times(trainer):
+    """The train step at the recipe's batch on the trained model: the
+    wrapper's forward (the kernel), its recompute backward, forward and
+    backward together and the plain version of that, the optimizer, the
+    whole step (CUDA events), and the device's busy time in the step, the
+    backward and the optimizer (torch.profiler)."""
+    from tactilesr_torch.data.loader import epoch_batches
+
+    dev, b = trainer.device, MAIN_BATCH
+    depth, abm = physics_inputs(b, dev, seed=300)
+    a = abm.clone().requires_grad_(True)
+    g_lr = torch.randn(b, 4, 4, generator=torch.Generator().manual_seed(301)).to(dev)
+    t = {"forward_ms": cuda_ms(lambda: tcuda.tpsf_physics_fused(depth, a), 200)}
+    _hr, lr = tcuda.tpsf_physics_fused(depth, a)
+    t["backward_ms"] = cuda_ms(lambda: torch.autograd.grad(lr, a, g_lr, retain_graph=True), 100)
+    t["ms"] = cuda_ms(lambda: torch.autograd.grad(tcuda.tpsf_physics_fused(depth, a)[1], a, g_lr), 100)
+
+    def plain_fwd_bwd():
+        with f32_matmul():
+            return torch.autograd.grad(physics_plain(depth, a)[1], a, g_lr)
+
+    t["plain_ms"] = cuda_ms(plain_fwd_bwd, 50)
+    t["bound_ms"], t["bound_by"] = fused_bound_ms(b)
+
+    idx, mask = next(epoch_batches(trainer.n_train, b, True, np.random.default_rng(0)))
+    weights = mask.reshape(trainer.grad_accum, -1).sum(axis=1)
+    idx_t, mask_t = trainer._to_device(idx), trainer._to_device(mask)
+    lr_now = trainer.lr
+    t["step_ms"] = cuda_ms(lambda: trainer._step(idx_t, mask_t, lr_now, weights), 50)
+    t["optimizer_ms"] = cuda_ms(lambda: trainer.optimizer.step(lr_now), 100)
+    log(f"[times] train step B={b} (bf16 MLP): whole step {t['step_ms']:.4f} ms; physics forward "
+        f"(kernel) {t['forward_ms']:.4f} ms, recompute backward {t['backward_ms']:.4f} ms, "
+        f"forward+backward {t['ms']:.4f} ms (plain, TF32 off: {t['plain_ms']:.4f} ms; bound "
+        f"{t['bound_ms']:.4f} ms, {t['bound_by']}); Adam {t['optimizer_ms']:.4f} ms")
+    for name, fn, ms in (
+        ("whole step", lambda: trainer._step(idx_t, mask_t, lr_now, weights), t["step_ms"]),
+        ("recompute backward", lambda: torch.autograd.grad(lr, a, g_lr, retain_graph=True),
+         t["backward_ms"]),
+        ("optimizer", lambda: trainer.optimizer.step(lr_now), t["optimizer_ms"]),
+    ):
+        prof = device_profile(fn)
+        t[name.replace(" ", "_") + "_profile"] = prof
+        busy = prof["busy_ms"]
+        share = "not measured" if busy is None else f"{busy:.4f} ms = {busy / ms * 100:.1f}% of {ms:.4f} ms"
+        log(f"[times] {name} under torch.profiler: {prof['kernels']:.0f} device ops per call, "
+            f"device busy {share}; largest: {prof['top']}")
+    return t
+
+
 def phase_times(dev, pred):
     times = {}
     for b in (MAIN_BATCH, 8192):
@@ -337,27 +547,59 @@ def main():
     phase_build()
     errs = phase_kernel(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        launches, test_lr = phase_generation(work, dev)
+        trainer, raw, ckpt, train_launches, grad_err, epoch_sps = phase_training(work, dev)
+        # the recipe allowed TF32 for f32 matmuls (matmul_precision "default");
+        # stage 2 runs in a process of its own, at torch's default
+        torch.set_float32_matmul_precision("highest")
+        gen_launches, test_lr = phase_generation(work, dev, raw, ckpt)
         pred = phase_serving(work, dev, test_lr)
         times = phase_times(dev, pred)
+        train_t = phase_train_times(trainer)
     smi = nvidia_smi_line()
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
+    by_path = {"training": train_launches, "generation": gen_launches}
     main_t = times[MAIN_BATCH]
-    record = {"kernels": [{
-        "name": "tpsf_physics",
-        "route": "cuda",
-        "source": "tactilesr_torch/ops/cuda/tpsf_kernel.cu",
-        "replaces": "tactilesr_tpu/ops/pallas/tpsf_kernel.py:162",
-        "launches": launches["tpsf_physics"],
-        "max_abs_err": max(errs.values()),
-        "ms": main_t["ms"],
-        "plain_ms": main_t["plain_ms"],
-        "bound_ms": main_t["bound_ms"],
-        "bound_by": main_t["bound_by"],
-        "library_ms": None,
-        "batch": MAIN_BATCH,
-        "at_b8192": times[8192],
-    }]}
+    record = {"kernels": [
+        {
+            "name": "tpsf_physics",
+            "route": "cuda",
+            "source": "tactilesr_torch/ops/cuda/tpsf_kernel.cu",
+            "replaces": "tactilesr_tpu/ops/pallas/tpsf_kernel.py:162",
+            "launches": sum(p["tpsf_physics"] for p in by_path.values()),
+            "launches_by_path": {k: p["tpsf_physics"] for k, p in by_path.items()},
+            "max_abs_err": max(errs.values()),
+            "ms": main_t["ms"],
+            "plain_ms": main_t["plain_ms"],
+            "bound_ms": main_t["bound_ms"],
+            "bound_by": main_t["bound_by"],
+            "library_ms": None,
+            "batch": MAIN_BATCH,
+            "at_b8192": times[8192],
+        },
+        {
+            "name": "tpsf_physics_fused",
+            "route": "cuda forward + autograd recompute",
+            "source": "tactilesr_torch/ops/cuda/__init__.py",
+            "replaces": "tactilesr_tpu/ops/pallas/tpsf_kernel.py:190",
+            "launches": train_launches["tpsf_physics_fused"],
+            "launches_by_path": {k: p["tpsf_physics_fused"] for k, p in by_path.items()},
+            "max_abs_err": grad_err,
+            "ms": train_t["ms"],
+            "plain_ms": train_t["plain_ms"],
+            "bound_ms": train_t["bound_ms"],
+            "bound_by": train_t["bound_by"],
+            "library_ms": None,
+            "batch": MAIN_BATCH,
+            "forward_ms": train_t["forward_ms"],
+            "backward_ms": train_t["backward_ms"],
+            "optimizer_ms": train_t["optimizer_ms"],
+            "step_ms": train_t["step_ms"],
+            "epoch_samples_per_s": epoch_sps,
+            "step_profile": train_t["whole_step_profile"],
+            "backward_profile": train_t["recompute_backward_profile"],
+            "optimizer_profile": train_t["optimizer_profile"],
+        },
+    ]}
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
 """Dataset classes over raw blobs, stacked into contiguous numpy arrays
-(the port's copy of ``tactilesr_tpu/data/datasets.py``'s raw-blob part)."""
+(the port's copy of ``tactilesr_tpu/data/datasets.py``'s raw-blob part:
+``TPSFNetDataset`` and ``SingleTapSeqsDataset``)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import numpy as np
 
 from .raw_process import load_raw_dataset
 
-__all__ = ["TPSFNetDataset"]
+__all__ = ["TPSFNetDataset", "SingleTapSeqsDataset"]
 
 
 class _StackedPairs:
@@ -47,3 +48,22 @@ class TPSFNetDataset(_StackedPairs):
         else:
             self._a = np.ascontiguousarray(np.stack([s["LR"] for s in samples]).astype(np.float32))
             self._b = np.ascontiguousarray(np.stack([s["depth"] for s in samples]).astype(np.float32))
+
+
+class SingleTapSeqsDataset(_StackedPairs):
+    """One tap's press sequence (for the alpha/beta-vs-force inference plots)."""
+
+    def __init__(self, dataset_file: str, is_sample_idx=6, sample_cnt: int = 10):
+        # a bare int would select every tap in load_raw_dataset (its
+        # selection takes lists only); the class documents one tap
+        if isinstance(is_sample_idx, (int, np.integer)):
+            is_sample_idx = [int(is_sample_idx)]
+        samples = load_raw_dataset(dataset_file, sample_cnt=sample_cnt, is_sample_idx=is_sample_idx)
+        if not samples:
+            raise ValueError(
+                f"SingleTapSeqsDataset: tap index {is_sample_idx} selected "
+                f"no samples from {dataset_file!r} (out of range, or the "
+                "tap has no pre-peak contact frames)"
+            )
+        self._a = np.ascontiguousarray(np.stack([s["LR"] for s in samples]).astype(np.float32))
+        self._b = np.ascontiguousarray(np.stack([s["depth"] for s in samples]).astype(np.float32))

@@ -1,6 +1,6 @@
 """tPSFNet: the learned point-spread-function physics model (ToH 2024 stage 1).
 
-An f32 MLP (48 -> 256 -> 1024 -> 256 -> 3, ReLU, final Softplus) maps a
+An MLP (48 -> 256 -> 1024 -> 256 -> 3, ReLU, final Softplus) maps a
 flattened (3, 4, 4) LR reading to (alpha, beta, m); the Gaussian PSF renders
 a depth map into an HR contact map, and the taxel degradation projects it
 back to a 4x4 reading (reference model/tPSFNet.py:13-141).
@@ -10,8 +10,12 @@ back to a 4x4 reading (reference model/tPSFNet.py:13-141).
          alpha_beta (B,1,3))
 
 The MLP is ``MLP_layer`` with Linear layers at indices 1, 3, 5, 7 (the
-reference's state_dict names).  The physics runs through the CUDA kernel
-on a GPU and its plain version on the CPU (``ops/psf.py``).
+reference's state_dict names).  Its layers compute in ``dtype`` with f32
+parameters, as the JAX package's ``Dense(dtype=...)`` does; the MLP output
+is cast to f32 before the softplus, and the physics always gets f32.  The
+physics runs through the CUDA kernel on a GPU (differentiable through
+``ops/cuda::tpsf_physics_fused``) and its plain version on the CPU
+(``ops/psf.py``).
 ``gama`` and ``perception_scale`` are stored but unused, as in the reference.
 """
 
@@ -26,7 +30,21 @@ import torch.nn.functional as F
 from ..ops.psf import tpsf_forward_physics
 from .layers import init_weights_
 
-__all__ = ["TPSFNet"]
+__all__ = ["TPSFNet", "Dense"]
+
+
+class Dense(nn.Linear):
+    """Linear layer with f32 parameters computing in ``dtype``: input, weight
+    and bias are cast to it, and the bias is added after the product is
+    rounded, as flax's ``nn.Dense`` does."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
 class TPSFNet(nn.Module):
@@ -36,17 +54,19 @@ class TPSFNet(nn.Module):
         perception_scale: Optional[float] = None,
         use_kernel="auto",
         generator: torch.Generator | None = None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.gama = gama
         self.perception_scale = perception_scale
         self.use_kernel = use_kernel
+        self.dtype = dtype
         self.MLP_layer = nn.Sequential(
             nn.Flatten(),
-            nn.Linear(48, 256), nn.ReLU(),
-            nn.Linear(256, 1024), nn.ReLU(),
-            nn.Linear(1024, 256), nn.ReLU(),
-            nn.Linear(256, 3),
+            Dense(48, 256, dtype), nn.ReLU(),
+            Dense(256, 1024, dtype), nn.ReLU(),
+            Dense(1024, 256, dtype), nn.ReLU(),
+            Dense(256, 3, dtype),
         )
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -56,7 +76,7 @@ class TPSFNet(nn.Module):
         if x.shape[0] != depth.shape[0]:
             raise ValueError("batch size of LR tactile and depth must be the same")
         b = x.shape[0]
-        alpha_beta = F.softplus(self.MLP_layer(x.float()))
+        alpha_beta = F.softplus(self.MLP_layer(x).float())
         depth2d = depth.reshape(b, depth.shape[-2], depth.shape[-1])
         hr, lr_degrade, psf = tpsf_forward_physics(
             depth2d, alpha_beta, return_psf=return_psf, use_kernel=self.use_kernel

@@ -11,6 +11,12 @@ PyTorch version (``ops/psf.py::physics_plain``); on a CUDA tensor it
 launches the kernel or raises -- a failed build or launch is never replaced
 by the plain version.  ``launch_counts`` counts kernel launches so that a
 run can show its main path went through the kernel.
+
+``tpsf_physics_fused`` makes the kernel trainable: a ``torch.autograd.Function``
+(the port of ``tactilesr_tpu/ops/pallas/tpsf_kernel.py::get_fused``, a
+``jax.custom_vjp``) whose forward is the kernel and whose backward recomputes
+the physics through ``physics_plain`` in full f32 and differentiates that, as
+the JAX package's ``_bwd`` does.  No backward kernel exists there either.
 """
 
 from __future__ import annotations
@@ -24,13 +30,17 @@ import threading
 
 import torch
 
-from ..psf import C_MASK, C_PSF, DEGRADE_SCALE, DISTURBANCE, HR_SIZE, TAXELS, physics_plain
+from ..psf import (
+    C_MASK, C_PSF, DEGRADE_SCALE, DISTURBANCE, HR_SIZE, TAXELS, f32_matmul, physics_plain,
+)
 
 __all__ = [
     "build",
     "launch_counts",
     "reset_launch_counts",
     "tpsf_physics",
+    "tpsf_physics_fused",
+    "TPSFPhysicsFn",
 ]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -42,7 +52,7 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset
-launch_counts = {"tpsf_physics": 0}
+launch_counts = {"tpsf_physics": 0, "tpsf_physics_fused": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -137,3 +147,51 @@ def tpsf_physics(depth: torch.Tensor, abm: torch.Tensor):
         )
     launch_counts["tpsf_physics"] += 1
     return hr, lr
+
+
+class TPSFPhysicsFn(torch.autograd.Function):
+    """(depth, abm) -> (HR, LR): the kernel forward, a recompute backward.
+
+    The backward runs ``physics_plain`` again on detached copies of the
+    saved inputs and differentiates it with TF32 off, whatever the global
+    matmul precision (the JAX backward is pinned to f32 HIGHEST the same
+    way); the contact fixup's second max stays detached there, as JAX's
+    ``stop_gradient``.  CPU tensors take ``physics_plain`` as the forward, so
+    the CPU tests run this same backward.
+    """
+
+    @staticmethod
+    def forward(ctx, depth, abm):
+        if depth.is_cuda:
+            hr, lr = tpsf_physics(depth, abm)
+            if depth.shape[0]:  # tpsf_physics launches nothing for B=0
+                launch_counts["tpsf_physics_fused"] += 1
+        else:
+            hr, lr = physics_plain(depth, abm)
+        ctx.save_for_backward(depth, abm)
+        ctx.set_materialize_grads(False)
+        return hr, lr
+
+    @staticmethod
+    def backward(ctx, g_hr, g_lr):
+        depth, abm = ctx.saved_tensors
+        need_depth, need_abm = ctx.needs_input_grad
+        d = depth.detach().requires_grad_(need_depth)
+        a = abm.detach().requires_grad_(need_abm)
+        with torch.enable_grad(), f32_matmul():
+            hr, lr = physics_plain(d, a)
+            outs = [(o, g) for o, g in ((hr, g_hr), (lr, g_lr)) if g is not None]
+            if not outs:
+                return None, None
+            wanted = [x for x, n in ((d, need_depth), (a, need_abm)) if n]
+            grads = torch.autograd.grad([o for o, _ in outs], wanted, [g for _, g in outs])
+        g_depth = grads[0].to(depth.dtype) if need_depth else None
+        g_abm = grads[-1].to(abm.dtype) if need_abm else None
+        return g_depth, g_abm
+
+
+def tpsf_physics_fused(depth: torch.Tensor, abm: torch.Tensor):
+    """Differentiable ``tpsf_physics``: the same outputs, with gradients for
+    depth and abm through the recompute backward."""
+    _check(depth, abm)
+    return TPSFPhysicsFn.apply(depth, abm)

@@ -22,6 +22,7 @@ computes the same function; ``depth_to_hr_direct`` and
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -37,6 +38,7 @@ __all__ = [
     "degradation",
     "degradation_direct",
     "physics_plain",
+    "f32_matmul",
     "tpsf_forward_physics",
 ]
 
@@ -162,6 +164,21 @@ def degradation_direct(hr: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bhw,bijhw->bij", hr.to(torch.float32), masking) * DEGRADE_SCALE
 
 
+@contextlib.contextmanager
+def f32_matmul():
+    """TF32 off for CUDA matmuls inside the block, restored after it.
+
+    Uses the same flag as ``torch.backends.cuda.matmul.allow_tf32`` readers
+    elsewhere in the port (mixing it with ``torch.get_float32_matmul_precision``
+    raises in recent torch)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def physics_plain(depth: torch.Tensor, abm: torch.Tensor):
     """Plain batched physics: depth (B,100,100), abm (B,3) -> (HR, LR).
 
@@ -176,18 +193,19 @@ def tpsf_forward_physics(depth, alpha_beta_m, return_psf: bool = True, use_kerne
     """Batched physics: depth (B,100,100), alpha_beta_m (B,3) ->
     (HR (B,100,100), LR_degrade (B,4,4), psf (B,99,99) or None).
 
-    ``use_kernel``: "auto" (the default) goes through the kernel's wrapper,
-    which launches the CUDA kernel when the tensors lie on a CUDA device and
-    runs the plain version when they lie on the CPU; False runs the plain
-    version anywhere.  On a GPU "auto" never falls back: a failed build or
-    launch raises.
+    ``use_kernel``: "auto" (the default) goes through the kernel's
+    differentiable wrapper ``tpsf_physics_fused``, which launches the CUDA
+    kernel when the tensors lie on a CUDA device and runs the plain version
+    when they lie on the CPU; False runs the plain version under autograd
+    anywhere.  On a GPU "auto" never falls back: a failed build or launch
+    raises.
     """
     if use_kernel not in ("auto", False):
         raise ValueError(f"use_kernel must be 'auto' or False, got {use_kernel!r}")
     if use_kernel == "auto":
-        from .cuda import tpsf_physics
+        from .cuda import tpsf_physics_fused
 
-        hr, lr = tpsf_physics(depth, alpha_beta_m)
+        hr, lr = tpsf_physics_fused(depth, alpha_beta_m)
     else:
         hr, lr = physics_plain(depth, alpha_beta_m)
     psf = None

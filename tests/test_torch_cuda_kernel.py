@@ -1,13 +1,15 @@
-"""The tPSF physics CUDA kernel against its plain PyTorch version, on the
-GPU.  Every test here needs an NVIDIA GPU and nvcc and skips without them.
+"""The tPSF physics CUDA kernel, and its autograd wrapper, against the plain
+PyTorch version, on the GPU.  Every test here needs an NVIDIA GPU and nvcc
+and skips without them.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine with only the port's dependencies:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernel.py -q
 
-Tolerances are the JAX kernel test's: HR rtol/atol 1e-4, LR rtol 1e-4 /
-atol 1e-6; the plain version runs with TF32 off (f32 FMA, as the kernel).
+Tolerances are the JAX kernel tests': HR rtol/atol 1e-4, LR rtol 1e-4 /
+atol 1e-6, gradients rtol 1e-3 / atol 1e-6; the plain version runs with
+TF32 off (f32 FMA, as the kernel).
 """
 
 import numpy as np
@@ -15,7 +17,7 @@ import pytest
 import torch
 
 from tactilesr_torch.ops import cuda as tcuda
-from tactilesr_torch.ops.psf import physics_plain
+from tactilesr_torch.ops.psf import f32_matmul, physics_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -46,12 +48,8 @@ def _inputs(b, dev, seed=0):
 
 
 def _plain(depth, abm):
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with f32_matmul():
         return physics_plain(depth, abm)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 @pytest.mark.parametrize("b", [1, 5, 256])
@@ -83,3 +81,37 @@ def test_empty_batch_launches_nothing(dev):
     hr, lr = tcuda.tpsf_physics(torch.zeros(0, 100, 100, device=dev), torch.ones(0, 3, device=dev))
     assert hr.shape == (0, 100, 100) and lr.shape == (0, 4, 4)
     assert tcuda.launch_counts["tpsf_physics"] == before
+
+
+@pytest.mark.parametrize("b", [5, 256])
+def test_fused_gradients_match_plain(dev, b):
+    """Kernel forward + recompute backward against autograd through the
+    plain physics, for depth and abm.  The loss reads the forward's LR, so
+    the kernel's output feeds the cotangent; TF32 is allowed globally
+    during the wrapper's run and must not reach its backward."""
+    depth, abm = _inputs(b, dev, seed=b)
+    g = torch.Generator().manual_seed(b)
+    w_hr = torch.randn(b, 100, 100, generator=g).to(dev)
+    target = torch.randn(b, 4, 4, generator=g).to(dev) * 1e-3
+
+    def loss(hr, lr):
+        return 0.5 * ((lr - target) ** 2).sum() + 1e-6 * (w_hr * hr).sum()
+
+    d_k, a_k = depth.clone().requires_grad_(True), abm.clone().requires_grad_(True)
+    before = dict(tcuda.launch_counts)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        loss(*tcuda.tpsf_physics_fused(d_k, a_k)).backward()
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.cuda.synchronize()
+    assert tcuda.launch_counts["tpsf_physics_fused"] == before["tpsf_physics_fused"] + 1
+    assert tcuda.launch_counts["tpsf_physics"] == before["tpsf_physics"] + 1
+
+    d_p, a_p = depth.clone().requires_grad_(True), abm.clone().requires_grad_(True)
+    with f32_matmul():
+        loss(*physics_plain(d_p, a_p)).backward()
+    torch.testing.assert_close(a_k.grad, a_p.grad, rtol=1e-3, atol=1e-6)
+    torch.testing.assert_close(d_k.grad, d_p.grad, rtol=1e-3, atol=1e-6)

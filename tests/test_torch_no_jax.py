@@ -1,6 +1,6 @@
-"""The port stands alone: every tactilesr_torch module, and chip_smoke.py's
-own imports, load in a process where jax, flax and tactilesr_tpu cannot be
-imported."""
+"""The port stands alone: every tactilesr_torch module, chip_smoke.py's own
+imports and the stage-1 training entry load and run in a process where jax,
+flax, optax and tactilesr_tpu cannot be imported."""
 
 import os
 import pkgutil
@@ -15,7 +15,7 @@ _BLOCKER = """
 import importlib.abc, sys
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "tactilesr_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "tactilesr_tpu"):
             raise ImportError("blocked: " + name)
         return None
 sys.meta_path.insert(0, _Block())
@@ -38,17 +38,49 @@ def _run(code):
 
 def test_port_imports_nothing_of_jax():
     mods = _modules()
-    assert "tactilesr_torch.ops.cuda" in mods and "tactilesr_torch.serving" in mods
+    for m in ("ops.cuda", "serving", "tasks.tpsf_task"):
+        assert f"tactilesr_torch.{m}" in mods, m
     code = (
         "import importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import sys\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tactilesr_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'tactilesr_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
     proc = _run(code)
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
+
+
+def test_port_module_list_covers_the_training_runtime():
+    mods = set(_modules())
+    for m in ("config.default", "config.parser", "data.loader", "metrics", "parallel.dist",
+              "runtime.checkpoint", "runtime.history", "runtime.hooks.builtin",
+              "runtime.hooks.hookbase", "runtime.logger", "runtime.misc", "runtime.optim",
+              "runtime.schedule", "runtime.trainer", "tasks.tpsf_task"):
+        assert f"tactilesr_torch.{m}" in mods, m
+
+
+def test_tpsf_training_entry_runs_without_jax(tmp_path):
+    """``python -m tactilesr_torch.tasks.tpsf_task`` trains one epoch on
+    the CPU at toy size with JAX blocked, and writes its checkpoints."""
+    raw, work = str(tmp_path / "raw"), str(tmp_path / "work")
+    code = (
+        "import runpy, sys\n"
+        "from tactilesr_torch.data import generate\n"
+        f"generate._cli(['synthetic', '--out-dir', {raw!r}, '--names', 'C', '--taps-per-blob', '9',"
+        " '--seqs', '24'])\n"
+        f"sys.argv = ['tpsf_task', '--device', 'cpu', '--dataset_dir', {raw!r}, '--save_dir',"
+        f" {work!r}, '--epochs', '1', '--sample_cnt', '4', '--train_batch_size', '8',"
+        " '--inference_test', 'false']\n"
+        "runpy.run_module('tactilesr_torch.tasks.tpsf_task', run_name='__main__')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'tactilesr_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
+    assert sorted(os.listdir(os.path.join(work, "checkpoints"))) == ["epoch_0.pth", "latest.pth"]
 
 
 def test_chip_smoke_imports_nothing_of_jax():
@@ -57,7 +89,7 @@ def test_chip_smoke_imports_nothing_of_jax():
     code = (
         "import runpy, sys\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke_import_check')\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tactilesr_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'tactilesr_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
