@@ -7,16 +7,21 @@ Phases (any failure exits non-zero and prints no result line):
 1. build      -- compile tactilesr_torch/ops/cuda/tpsf_kernel.cu with nvcc
 2. kernel     -- the tPSF physics kernel vs its plain PyTorch version at
                  B in {1, 5, 256, 8192} (TF32 off for the plain version;
-                 HR rtol/atol 1e-4, LR rtol 1e-4 / atol 1e-6)
+                 HR rtol/atol 1e-4, LR rtol 1e-4 / atol 1e-6); the backward
+                 kernel vs its plain version ``physics_vjp_plain`` at the same
+                 B, with LR and HR cotangents, for abm and depth (rtol 1e-3,
+                 atol 1e-6), and with the LR cotangent alone for abm (the
+                 training call)
 3. training   -- ``generate synthetic`` (3 blobs of 81 taps), then stage 1
                  through its entry (``tasks/tpsf_task.py``) at the recipe's
                  defaults for 2 epochs (7,296 samples, batch 256, bf16 MLP),
                  the last epoch timed on the host clock (samples/s);
-                 both kernel wrappers' counts must rise by at least the step
-                 count, every loss and the eval metric must be finite, every
+                 both forward wrappers' counts must rise by at least the step
+                 count and the backward kernel must launch once per step,
+                 every loss and the eval metric must be finite, every
                  parameter must move, ``latest.pth`` must exist, the
                  alpha/beta curves must be finite; then the wrapper's
-                 gradients (kernel forward, recompute backward) vs autograd
+                 gradients (kernel forward, kernel backward) vs autograd
                  through the plain physics at B=256 (rtol 1e-3, atol 1e-6)
 4. generation -- ``generate single --sample-cnt 4 --batch 256`` from the
                  checkpoint that training wrote; the kernel's launch count
@@ -26,11 +31,12 @@ Phases (any failure exits non-zero and prints no result line):
                  perturbed BN stats) served by SRPredictor in bf16 for three
                  requests, held against the f32 eval forward; fused f32 vs
                  unfused f32; hot swap and refusal
-6. times      -- kernel and plain times at B=256 and B=8192 (CUDA events);
-                 the train step at B=256 split into the physics forward, its
-                 recompute backward, the optimizer and the whole step (CUDA
-                 events) and the card's busy time in them (torch.profiler);
-                 SRPredictor frames/s at bucket 1024
+6. times      -- forward and backward kernel and plain times at B=256 and
+                 B=8192 (CUDA events); the train step at B=256 split into the
+                 physics forward, its kernel backward, the optimizer and the
+                 whole step (CUDA events) and the card's busy time in them
+                 (torch.profiler; the backward must issue at most 3 device
+                 ops); SRPredictor frames/s at bucket 1024
 
 The second-to-last line is the per-kernel JSON record, the line before it
 the card's name and power limit, and the last line
@@ -56,7 +62,7 @@ from tactilesr_torch.models.inference import fold_inference_params, tactile_sr_i
 from tactilesr_torch.models.tactile_sr import TactileSR  # noqa: E402
 from tactilesr_torch.models.tpsf_net import TPSFNet  # noqa: E402
 from tactilesr_torch.ops import cuda as tcuda  # noqa: E402
-from tactilesr_torch.ops.psf import f32_matmul, physics_plain  # noqa: E402
+from tactilesr_torch.ops.psf import f32_matmul, physics_plain, physics_vjp_plain  # noqa: E402
 from tactilesr_torch.runtime.checkpoint import load_checkpoint_file, save_checkpoint_file  # noqa: E402
 from tactilesr_torch.runtime.hooks import HookBase  # noqa: E402
 from tactilesr_torch.serving import SRPredictor  # noqa: E402
@@ -164,6 +170,35 @@ def fused_bound_ms(b):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def tpsf_bwd_bound_ms(b):
+    """Least time for the backward kernel's function as training calls it
+    (LR cotangent, abm gradient) at B samples: the forward's two banded
+    products (recomputed from the inputs), the three banded products of the
+    abm backward (Q = G0 A and the two correlations with the band of
+    dL/dA) and the degradation's backward at twice its forward, over the
+    f32 peak, against depth, abm and the LR cotangent in and the abm
+    gradient out, once each, over HBM bandwidth."""
+    band = sum(min(99, i + 49) - max(0, i - 49) + 1 for i in range(100))  # 7,450 taps of A
+    degrade = 2 * (4 * 100 * 100 + 4 * 4 * 100)
+    flops = 5 * 2 * band * 100 + 2 * degrade
+    nbytes = 4 * (100 * 100 + 3 + 16 + 3)
+    t_ops = b * flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = b * nbytes / PEAK_HBM_BPS * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def vjp_plain_f32(depth, abm, g_hr, g_lr, need_depth):
+    with f32_matmul():
+        return physics_vjp_plain(depth, abm, g_hr, g_lr, need_depth, True)
+
+
+def cotangents(b, dev, seed):
+    """HR and LR cotangents, the HR one at the scale of the LR one's
+    pull-back (1e-4 U^T g_lr U)."""
+    g = torch.Generator().manual_seed(seed)
+    return (1e-4 * torch.randn(b, 100, 100, generator=g)).to(dev), torch.randn(b, 4, 4, generator=g).to(dev)
+
+
 def phase_build():
     t0 = time.perf_counter()
     tcuda.build()
@@ -197,6 +232,35 @@ def phase_kernel(dev):
     return errs
 
 
+def phase_kernel_bwd(dev):
+    """The backward kernel against physics_vjp_plain (TF32 off): LR and HR
+    cotangents for depth and abm, then the LR cotangent alone for abm."""
+    errs = {}
+    for b in KERNEL_BATCHES:
+        # at B=1 the last (all-zero) map would be the only one: take a contact map
+        depth, abm = physics_inputs(b + 1, dev, seed=b) if b == 1 else physics_inputs(b, dev, seed=b)
+        depth, abm = depth[:b], abm[:b]
+        g_hr, g_lr = cotangents(b, dev, seed=b + 1)
+        worst = 0.0
+        for hr_ct, need_depth in ((g_hr, True), (None, False)):
+            gd_k, ga_k = tcuda.tpsf_physics_bwd(depth, abm, hr_ct, g_lr, need_depth=need_depth)
+            gd_p, ga_p = vjp_plain_f32(depth, abm, hr_ct, g_lr, need_depth)
+            torch.cuda.synchronize()
+            pairs = [("abm", ga_k, ga_p)] + ([("depth", gd_k, gd_p)] if need_depth else [])
+            for name, got, want in pairs:
+                torch.testing.assert_close(got, want, **GRAD_TOL,
+                                           msg=lambda m, n=name: f"B={b} {n} gradient: {m}")
+                err = float((got - want).abs().max())
+                worst = max(worst, err)
+                log(f"[kernel] backward B={b} {'LR+HR' if need_depth else 'LR'} {name}: "
+                    f"max|d|={err:.3e} (max |grad| {float(want.abs().max()):.3e}; rtol 1e-3, "
+                    "atol 1e-6) ok")
+            check(b == 1 or bool(torch.all(ga_k[-1] == 0)), "the all-zero map must get a zero abm gradient")
+            check(bool(torch.all(ga_k[0] != 0)), "a contact map got a zero abm gradient")
+        errs[b] = worst
+    return errs
+
+
 def _grad_parity(dev, b=MAIN_BATCH):
     """The wrapper's gradients against autograd through the plain physics
     (TF32 off) at the recipe's batch.  The loss reads the forward's LR, so
@@ -220,7 +284,7 @@ def _grad_parity(dev, b=MAIN_BATCH):
         torch.testing.assert_close(got, want, **GRAD_TOL,
                                    msg=lambda m, n=name: f"{n} gradient, kernel vs plain: {m}")
         errs[name] = float((got - want).abs().max())
-        log(f"[training] B={b} {name} gradient: kernel fwd + recompute bwd vs plain autograd "
+        log(f"[training] B={b} {name} gradient: kernel fwd + kernel bwd vs plain autograd "
             f"max|d|={errs[name]:.3e} (max |grad| {float(want.abs().max()):.3e}; rtol 1e-3, "
             "atol 1e-6) ok")
     return max(errs.values())
@@ -274,6 +338,8 @@ def phase_training(work, dev):
     for name in ("tpsf_physics", "tpsf_physics_fused"):
         check(launches[name] >= steps,
               f"{name} launched {launches[name]} times in {steps} training steps: {launches}")
+    check(launches["tpsf_physics_bwd"] == steps,
+          f"tpsf_physics_bwd launched {launches['tpsf_physics_bwd']} times in {steps} steps")
     losses = trainer.metric_storage["total_loss"]
     check(len(losses) == steps and np.isfinite(losses.global_sum),
           f"losses: {len(losses)} logged, global sum {losses.global_sum}")
@@ -459,10 +525,10 @@ def device_profile(fn, n=5):
 
 def phase_train_times(trainer):
     """The train step at the recipe's batch on the trained model: the
-    wrapper's forward (the kernel), its recompute backward, forward and
-    backward together and the plain version of that, the optimizer, the
-    whole step (CUDA events), and the device's busy time in the step, the
-    backward and the optimizer (torch.profiler)."""
+    wrapper's forward (the kernel), its backward (the backward kernel),
+    forward and backward together and the plain version of that, the
+    optimizer, the whole step (CUDA events), and the device's busy time in
+    the step, the backward and the optimizer (torch.profiler)."""
     from tactilesr_torch.data.loader import epoch_batches
 
     dev, b = trainer.device, MAIN_BATCH
@@ -488,12 +554,12 @@ def phase_train_times(trainer):
     t["step_ms"] = cuda_ms(lambda: trainer._step(idx_t, mask_t, lr_now, weights), 50)
     t["optimizer_ms"] = cuda_ms(lambda: trainer.optimizer.step(lr_now), 100)
     log(f"[times] train step B={b} (bf16 MLP): whole step {t['step_ms']:.4f} ms; physics forward "
-        f"(kernel) {t['forward_ms']:.4f} ms, recompute backward {t['backward_ms']:.4f} ms, "
+        f"(kernel) {t['forward_ms']:.4f} ms, kernel backward {t['backward_ms']:.4f} ms, "
         f"forward+backward {t['ms']:.4f} ms (plain, TF32 off: {t['plain_ms']:.4f} ms; bound "
         f"{t['bound_ms']:.4f} ms, {t['bound_by']}); Adam {t['optimizer_ms']:.4f} ms")
     for name, fn, ms in (
         ("whole step", lambda: trainer._step(idx_t, mask_t, lr_now, weights), t["step_ms"]),
-        ("recompute backward", lambda: torch.autograd.grad(lr, a, g_lr, retain_graph=True),
+        ("kernel backward", lambda: torch.autograd.grad(lr, a, g_lr, retain_graph=True),
          t["backward_ms"]),
         ("optimizer", lambda: trainer.optimizer.step(lr_now), t["optimizer_ms"]),
     ):
@@ -503,11 +569,13 @@ def phase_train_times(trainer):
         share = "not measured" if busy is None else f"{busy:.4f} ms = {busy / ms * 100:.1f}% of {ms:.4f} ms"
         log(f"[times] {name} under torch.profiler: {prof['kernels']:.0f} device ops per call, "
             f"device busy {share}; largest: {prof['top']}")
+    ops = t["kernel_backward_profile"]["kernels"]
+    check(ops <= 3, f"the kernel backward issued {ops} device ops per call (at most 3)")
     return t
 
 
 def phase_times(dev, pred):
-    times = {}
+    times, bwd_times = {}, {}
     for b in (MAIN_BATCH, 8192):
         depth, abm = physics_inputs(b, dev, seed=100 + b)
         iters = 200 if b <= 256 else 20
@@ -517,6 +585,13 @@ def phase_times(dev, pred):
         times[b] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by)
         log(f"[times] tpsf_physics B={b}: kernel {k_ms:.4f} ms ({b / k_ms * 1e3:.0f} samples/s), "
             f"plain (TF32 off) {p_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+        g_lr = cotangents(b, dev, seed=200 + b)[1]  # the training call: LR cotangent, abm only
+        k_ms = cuda_ms(lambda: tcuda.tpsf_physics_bwd(depth, abm, None, g_lr, need_depth=False), iters)
+        p_ms = cuda_ms(lambda: vjp_plain_f32(depth, abm, None, g_lr, False), max(5, iters // 4))
+        bound, by = tpsf_bwd_bound_ms(b)
+        bwd_times[b] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by)
+        log(f"[times] tpsf_physics_bwd B={b} (LR cotangent, abm): kernel {k_ms:.4f} ms, plain "
+            f"physics_vjp_plain (TF32 off) {p_ms:.4f} ms, bound {bound:.4f} ms ({by})")
 
     # SRPredictor at bucket 1024: host clock around predict (H2D, compute, D2H)
     lr = (torch.rand(1024, 3, 4, 4, generator=torch.Generator().manual_seed(9)) * 4).numpy()
@@ -532,7 +607,7 @@ def phase_times(dev, pred):
     log(f"[times] SRPredictor bf16 fused, bucket 1024: median {1024 / runs[2]:.1f} frames/s "
         f"(predict() host clock, 5 runs, min {1024 / runs[-1]:.1f} max {1024 / runs[0]:.1f}); "
         f"device forward {dev_ms:.3f} ms = {1024 / dev_ms * 1e3:.1f} frames/s")
-    return times
+    return times, bwd_times
 
 
 def main():
@@ -546,6 +621,7 @@ def main():
     t_all = time.perf_counter()
     phase_build()
     errs = phase_kernel(dev)
+    bwd_errs = phase_kernel_bwd(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         trainer, raw, ckpt, train_launches, grad_err, epoch_sps = phase_training(work, dev)
         # the recipe allowed TF32 for f32 matmuls (matmul_precision "default");
@@ -553,7 +629,7 @@ def main():
         torch.set_float32_matmul_precision("highest")
         gen_launches, test_lr = phase_generation(work, dev, raw, ckpt)
         pred = phase_serving(work, dev, test_lr)
-        times = phase_times(dev, pred)
+        times, bwd_times = phase_times(dev, pred)
         train_t = phase_train_times(trainer)
     smi = nvidia_smi_line()
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
@@ -577,8 +653,24 @@ def main():
             "at_b8192": times[8192],
         },
         {
+            "name": "tpsf_physics_bwd",
+            "route": "cuda",
+            "source": "tactilesr_torch/ops/cuda/tpsf_kernel.cu",
+            "replaces": "tactilesr_tpu/ops/pallas/tpsf_kernel.py:207",
+            "launches": sum(p["tpsf_physics_bwd"] for p in by_path.values()),
+            "launches_by_path": {k: p["tpsf_physics_bwd"] for k, p in by_path.items()},
+            "max_abs_err": max(bwd_errs.values()),
+            "ms": bwd_times[MAIN_BATCH]["ms"],
+            "plain_ms": bwd_times[MAIN_BATCH]["plain_ms"],
+            "bound_ms": bwd_times[MAIN_BATCH]["bound_ms"],
+            "bound_by": bwd_times[MAIN_BATCH]["bound_by"],
+            "library_ms": None,
+            "batch": MAIN_BATCH,
+            "at_b8192": bwd_times[8192],
+        },
+        {
             "name": "tpsf_physics_fused",
-            "route": "cuda forward + autograd recompute",
+            "route": "cuda forward + cuda backward",
             "source": "tactilesr_torch/ops/cuda/__init__.py",
             "replaces": "tactilesr_tpu/ops/pallas/tpsf_kernel.py:190",
             "launches": train_launches["tpsf_physics_fused"],
@@ -596,7 +688,7 @@ def main():
             "step_ms": train_t["step_ms"],
             "epoch_samples_per_s": epoch_sps,
             "step_profile": train_t["whole_step_profile"],
-            "backward_profile": train_t["recompute_backward_profile"],
+            "backward_profile": train_t["kernel_backward_profile"],
             "optimizer_profile": train_t["optimizer_profile"],
         },
     ]}

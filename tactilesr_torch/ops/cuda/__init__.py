@@ -12,11 +12,17 @@ launches the kernel or raises -- a failed build or launch is never replaced
 by the plain version.  ``launch_counts`` counts kernel launches so that a
 run can show its main path went through the kernel.
 
-``tpsf_physics_fused`` makes the kernel trainable: a ``torch.autograd.Function``
+``tpsf_physics_bwd`` is the wrapper of the backward kernel in the same
+source: the vector-Jacobian product of the physics in f32, recomputed from
+(depth, abm) in one launch.  Its plain version is
+``ops/psf.py::physics_vjp_plain``, taken for CPU tensors only.
+
+``tpsf_physics_fused`` makes the kernels trainable: a ``torch.autograd.Function``
 (the port of ``tactilesr_tpu/ops/pallas/tpsf_kernel.py::get_fused``, a
-``jax.custom_vjp``) whose forward is the kernel and whose backward recomputes
-the physics through ``physics_plain`` in full f32 and differentiates that, as
-the JAX package's ``_bwd`` does.  No backward kernel exists there either.
+``jax.custom_vjp``) whose forward is the forward kernel and whose backward is
+the backward kernel.  The JAX package's ``_bwd`` differentiates an XLA
+recompute at f32 HIGHEST inside one jitted program; eager PyTorch would issue
+a hundred small ops for that, so here it is one kernel.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 from ..psf import (
     C_MASK, C_PSF, DEGRADE_SCALE, DISTURBANCE, HR_SIZE, TAXELS, f32_matmul, physics_plain,
+    physics_vjp_plain,
 )
 
 __all__ = [
@@ -39,6 +46,7 @@ __all__ = [
     "launch_counts",
     "reset_launch_counts",
     "tpsf_physics",
+    "tpsf_physics_bwd",
     "tpsf_physics_fused",
     "TPSFPhysicsFn",
 ]
@@ -52,7 +60,7 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset
-launch_counts = {"tpsf_physics": 0, "tpsf_physics_fused": 0}
+launch_counts = {"tpsf_physics": 0, "tpsf_physics_fused": 0, "tpsf_physics_bwd": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -102,6 +110,12 @@ def build() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_void_p,
         ]
         lib.tpsf_physics_launch.restype = ctypes.c_int
+        lib.tpsf_physics_bwd_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ]
+        lib.tpsf_physics_bwd_launch.restype = ctypes.c_int
         lib.tpsf_error_string.argtypes = [ctypes.c_int]
         lib.tpsf_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -117,6 +131,13 @@ def _check(depth: torch.Tensor, abm: torch.Tensor) -> None:
         raise ValueError(f"depth on {depth.device} but abm on {abm.device}")
 
 
+def _f32_aligned(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous f32 whose data is 16-byte aligned: the kernels read these
+    tensors in 128-bit words."""
+    x = x.to(torch.float32).contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def tpsf_physics(depth: torch.Tensor, abm: torch.Tensor):
     """depth (B,100,100), abm (B,3) -> (HR (B,100,100) f32, LR (B,4,4) f32).
 
@@ -126,9 +147,7 @@ def tpsf_physics(depth: torch.Tensor, abm: torch.Tensor):
     if not depth.is_cuda:
         return physics_plain(depth, abm)
     lib = build()
-    depth = depth.to(torch.float32).contiguous()
-    if depth.data_ptr() % 16:  # the kernel reads depth in 128-bit words
-        depth = depth.clone()
+    depth = _f32_aligned(depth)
     abm = abm.to(torch.float32).contiguous()
     b = depth.shape[0]
     hr = torch.empty((b, HR_SIZE, HR_SIZE), dtype=torch.float32, device=depth.device)
@@ -149,15 +168,61 @@ def tpsf_physics(depth: torch.Tensor, abm: torch.Tensor):
     return hr, lr
 
 
-class TPSFPhysicsFn(torch.autograd.Function):
-    """(depth, abm) -> (HR, LR): the kernel forward, a recompute backward.
+def tpsf_physics_bwd(depth: torch.Tensor, abm: torch.Tensor, g_hr, g_lr,
+                     need_depth: bool = True, need_abm: bool = True):
+    """The physics' vector-Jacobian product: depth (B,100,100), abm (B,3) and
+    the cotangents g_hr (B,100,100) and g_lr (B,4,4), either may be None ->
+    (g_depth (B,100,100) f32 or None, g_abm (B,3) f32 or None), each only
+    when asked for.
 
-    The backward runs ``physics_plain`` again on detached copies of the
-    saved inputs and differentiates it with TF32 off, whatever the global
-    matmul precision (the JAX backward is pinned to f32 HIGHEST the same
-    way); the contact fixup's second max stays detached there, as JAX's
-    ``stop_gradient``.  CPU tensors take ``physics_plain`` as the forward, so
-    the CPU tests run this same backward.
+    CUDA tensors go through the backward kernel, which recomputes the
+    forward from (depth, abm); CPU tensors through the plain version
+    ``physics_vjp_plain`` with TF32 off."""
+    _check(depth, abm)
+    b = depth.shape[0]
+    for name, g, shape in (("g_hr", g_hr, (b, HR_SIZE, HR_SIZE)), ("g_lr", g_lr, (b, TAXELS, TAXELS))):
+        if g is not None and (tuple(g.shape) != shape or g.device != depth.device):
+            raise ValueError(f"{name} must be {shape} on {depth.device}, got "
+                             f"{tuple(g.shape)} on {g.device}")
+    if not depth.is_cuda:
+        with f32_matmul():
+            return physics_vjp_plain(depth, abm, g_hr, g_lr, need_depth, need_abm)
+    lib = build()
+    depth = _f32_aligned(depth)
+    abm = abm.to(torch.float32).contiguous()
+    g_lr = None if g_lr is None else g_lr.to(torch.float32).contiguous()
+    g_hr = None if g_hr is None else _f32_aligned(g_hr)
+    g_abm = torch.empty((b, 3), dtype=torch.float32, device=depth.device) if need_abm else None
+    g_depth = torch.empty_like(depth) if need_depth else None
+    if b == 0:
+        return g_depth, g_abm
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    with torch.cuda.device(depth.device):
+        stream = torch.cuda.current_stream(depth.device).cuda_stream
+        err = lib.tpsf_physics_bwd_launch(
+            depth.data_ptr(), abm.data_ptr(), ptr(g_lr), ptr(g_hr), ptr(g_abm), ptr(g_depth), b,
+            C_PSF, C_MASK, DISTURBANCE, DEGRADE_SCALE, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"tpsf_physics_bwd kernel launch failed: {lib.tpsf_error_string(err).decode()}"
+        )
+    launch_counts["tpsf_physics_bwd"] += 1
+    return g_depth, g_abm
+
+
+class TPSFPhysicsFn(torch.autograd.Function):
+    """(depth, abm) -> (HR, LR): the forward kernel, the backward kernel.
+
+    The backward recomputes the physics from the saved (depth, abm) and
+    never reads the forward's outputs, in f32 whatever the global matmul
+    precision (the JAX backward is pinned to f32 HIGHEST the same way); the
+    contact fixup's second max passes no gradient, as JAX's
+    ``stop_gradient``.  CPU tensors take ``physics_plain`` as the forward
+    and ``physics_vjp_plain`` as the backward.
     """
 
     @staticmethod
@@ -174,24 +239,17 @@ class TPSFPhysicsFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_hr, g_lr):
+        if g_hr is None and g_lr is None:
+            return None, None
         depth, abm = ctx.saved_tensors
         need_depth, need_abm = ctx.needs_input_grad
-        d = depth.detach().requires_grad_(need_depth)
-        a = abm.detach().requires_grad_(need_abm)
-        with torch.enable_grad(), f32_matmul():
-            hr, lr = physics_plain(d, a)
-            outs = [(o, g) for o, g in ((hr, g_hr), (lr, g_lr)) if g is not None]
-            if not outs:
-                return None, None
-            wanted = [x for x, n in ((d, need_depth), (a, need_abm)) if n]
-            grads = torch.autograd.grad([o for o, _ in outs], wanted, [g for _, g in outs])
-        g_depth = grads[0].to(depth.dtype) if need_depth else None
-        g_abm = grads[-1].to(abm.dtype) if need_abm else None
-        return g_depth, g_abm
+        g_depth, g_abm = tpsf_physics_bwd(depth, abm, g_hr, g_lr, need_depth, need_abm)
+        return (None if g_depth is None else g_depth.to(depth.dtype),
+                None if g_abm is None else g_abm.to(abm.dtype))
 
 
 def tpsf_physics_fused(depth: torch.Tensor, abm: torch.Tensor):
     """Differentiable ``tpsf_physics``: the same outputs, with gradients for
-    depth and abm through the recompute backward."""
+    depth and abm through the backward kernel."""
     _check(depth, abm)
     return TPSFPhysicsFn.apply(depth, abm)

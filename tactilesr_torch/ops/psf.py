@@ -38,6 +38,7 @@ __all__ = [
     "degradation",
     "degradation_direct",
     "physics_plain",
+    "physics_vjp_plain",
     "f32_matmul",
     "tpsf_forward_physics",
 ]
@@ -187,6 +188,71 @@ def physics_plain(depth: torch.Tensor, abm: torch.Tensor):
     abm = abm.to(torch.float32)
     hr = depth_to_hr(depth, abm[:, 0], abm[:, 1])
     return hr, degradation(hr, abm[:, 2])
+
+
+def physics_vjp_plain(depth, abm, g_hr, g_lr, need_depth: bool = True, need_abm: bool = True):
+    """Closed-form vector-Jacobian product of ``physics_plain``, batched.
+
+    depth (B,100,100), abm (B,3) and the cotangents g_hr (B,100,100) and
+    g_lr (B,4,4), either of which may be None -> (g_depth or None, g_abm or
+    None) in f32.  The plain version of the backward kernel in
+    ``ops/cuda/tpsf_kernel.cu``; per sample, with T = A D, HR0 = alpha T A
+    (A is symmetric), U the taxel profiles, c = 1e-4 / (1 - mn):
+
+        G      = c (U^T g_lr U - mn sum(g_lr)) + g_hr,  G0 = where(mask, 0, G)
+        d_alpha = sum(G0 * T A)
+        d_beta  = sum(dL/dA * dA/dbeta),  dL/dA = alpha (G0 A D^T + G0^T T)
+        d_m     = sum(c (g_lr W + g_lr^T V) * dU/dm)
+                  + sum(g_lr * 1e-4 (T2 - S) / (1 - mn)^2) * dmn/dm
+        g_depth = alpha A G0 A
+
+    with V = U HR, W = U HR^T, T2 = V U^T and S = sum(HR).  The contact
+    pixels take the detached second max, so they pass no gradient.  The
+    kernel sums dL/dA along its diagonals (the row and column correlations
+    h1 and h2) before weighting by dg/dbeta; that is the same sum.
+    """
+    d = depth.to(torch.float32)
+    abm = abm.to(torch.float32)
+    alpha, beta, m = _col(abm[:, 0]), _col(abm[:, 1]), _col(abm[:, 2])
+    a = _band_matrix(abm[:, 1])
+    t = torch.matmul(a, d)
+    hr0_a = torch.matmul(t, a)  # HR0 / alpha
+    mask = contact_mask(d)
+    mn = torch.exp(-100.0 / m)
+    c = DEGRADE_SCALE / (1.0 - mn)
+    u = _taxel_profiles(abm[:, 2])
+    g = torch.zeros_like(d)
+    if g_lr is not None:
+        gam = g_lr.to(torch.float32)
+        ut = u.transpose(-2, -1)
+        g = c * (torch.matmul(torch.matmul(ut, gam), u) - mn * gam.sum(dim=(-2, -1), keepdim=True))
+    if g_hr is not None:
+        g = g + g_hr.to(torch.float32)
+    g0 = torch.where(mask, torch.zeros((), device=d.device), g)
+    q = torch.matmul(g0, a)
+    g_depth = alpha * torch.matmul(a, q) if need_depth else None
+    if not need_abm:
+        return g_depth, None
+
+    d_alpha = (g0 * hr0_a).sum(dim=(-2, -1))
+    d_a = alpha * (torch.matmul(q, d.transpose(-2, -1)) + torch.matmul(g0.transpose(-2, -1), t))
+    idx = torch.arange(HR_SIZE, dtype=torch.float32, device=d.device)
+    o2 = (idx[None, :] - idx[:, None]) ** 2  # (k - i)^2; A is 0 off the band
+    d_beta = (d_a * a * (2.0 * C_PSF) * o2 / beta ** 3).sum(dim=(-2, -1))
+    d_m = torch.zeros_like(d_alpha)
+    if g_lr is not None:
+        hr = _second_max_fixup(alpha * hr0_a, mask)
+        v = torch.matmul(u, hr)
+        w = torch.matmul(u, hr.transpose(-2, -1))
+        t2 = torch.matmul(v, u.transpose(-2, -1))
+        total = hr.sum(dim=(-2, -1), keepdim=True)
+        g_u = c * (torch.matmul(gam, w) + torch.matmul(gam.transpose(-2, -1), v))
+        centers = torch.arange(TAXELS, dtype=torch.float32, device=d.device) * TAXEL_PITCH + TAXEL_CENTER_0
+        du_dm = u * C_MASK * (idx[None, :] - centers[:, None]) ** 2 / (m * m)
+        dlr_dmn = DEGRADE_SCALE * (t2 - total) / (1.0 - mn) ** 2
+        dmn_dm = mn * 100.0 / (m * m)
+        d_m = (g_u * du_dm).sum(dim=(-2, -1)) + (gam * dlr_dmn * dmn_dm).sum(dim=(-2, -1))
+    return g_depth, torch.stack([d_alpha, d_beta, d_m], dim=-1)
 
 
 def tpsf_forward_physics(depth, alpha_beta_m, return_psf: bool = True, use_kernel="auto"):

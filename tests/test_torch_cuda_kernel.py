@@ -1,5 +1,5 @@
-"""The tPSF physics CUDA kernel, and its autograd wrapper, against the plain
-PyTorch version, on the GPU.  Every test here needs an NVIDIA GPU and nvcc
+"""The tPSF physics CUDA kernels (forward and backward), and their autograd
+wrapper, against the plain PyTorch versions, on the GPU.  Every test here needs an NVIDIA GPU and nvcc
 and skips without them.
 
 This file imports neither jax nor the JAX package, so it also runs on a
@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from tactilesr_torch.ops import cuda as tcuda
-from tactilesr_torch.ops.psf import f32_matmul, physics_plain
+from tactilesr_torch.ops.psf import f32_matmul, physics_plain, physics_vjp_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -85,7 +85,7 @@ def test_empty_batch_launches_nothing(dev):
 
 @pytest.mark.parametrize("b", [5, 256])
 def test_fused_gradients_match_plain(dev, b):
-    """Kernel forward + recompute backward against autograd through the
+    """Kernel forward + kernel backward against autograd through the
     plain physics, for depth and abm.  The loss reads the forward's LR, so
     the kernel's output feeds the cotangent; TF32 is allowed globally
     during the wrapper's run and must not reach its backward."""
@@ -115,3 +115,86 @@ def test_fused_gradients_match_plain(dev, b):
         loss(*physics_plain(d_p, a_p)).backward()
     torch.testing.assert_close(a_k.grad, a_p.grad, rtol=1e-3, atol=1e-6)
     torch.testing.assert_close(d_k.grad, d_p.grad, rtol=1e-3, atol=1e-6)
+
+
+def _cotangents(b, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (1e-4 * torch.randn(b, 100, 100, generator=g)).to(dev), torch.randn(b, 4, 4, generator=g).to(dev)
+
+
+def _autograd_plain(depth, abm, g_hr, g_lr, need_depth):
+    d = depth.clone().requires_grad_(need_depth)
+    a = abm.clone().requires_grad_(True)
+    with f32_matmul():
+        hr, lr = physics_plain(d, a)
+        outs = [(o, g) for o, g in ((hr, g_hr), (lr, g_lr)) if g is not None]
+        wanted = [d, a] if need_depth else [a]
+        grads = torch.autograd.grad([o for o, _ in outs], wanted, [g for _, g in outs])
+    return (grads[0] if need_depth else None), grads[-1]
+
+
+@pytest.mark.parametrize("b", [1, 5, 256])
+@pytest.mark.parametrize("with_hr", [False, True], ids=["lr_only", "lr_and_hr"])
+@pytest.mark.parametrize("need_depth", [False, True], ids=["abm_only", "depth_and_abm"])
+def test_backward_kernel_matches_plain(dev, b, with_hr, need_depth):
+    """The backward kernel against physics_vjp_plain and against autograd
+    through the plain physics (TF32 off), at GRAD_TOL."""
+    # at B=1 the last (all-zero) map would be the only one: take a contact map
+    depth, abm = _inputs(b + 1, dev, seed=b) if b == 1 else _inputs(b, dev, seed=b)
+    depth, abm = depth[:b], abm[:b]
+    g_hr, g_lr = _cotangents(b, dev, seed=b + 1)
+    g_hr = g_hr if with_hr else None
+    before = tcuda.launch_counts["tpsf_physics_bwd"]
+    gd_k, ga_k = tcuda.tpsf_physics_bwd(depth, abm, g_hr, g_lr, need_depth=need_depth)
+    torch.cuda.synchronize()
+    assert tcuda.launch_counts["tpsf_physics_bwd"] == before + 1
+    with f32_matmul():
+        gd_p, ga_p = physics_vjp_plain(depth, abm, g_hr, g_lr, need_depth, True)
+    gd_a, ga_a = _autograd_plain(depth, abm, g_hr, g_lr, need_depth)
+    for want in (ga_p, ga_a):
+        torch.testing.assert_close(ga_k, want, rtol=1e-3, atol=1e-6)
+    assert b == 1 or torch.all(ga_k[-1] == 0)  # the all-zero map is all contact
+    assert torch.all(ga_k[0] != 0)
+    if need_depth:
+        for want in (gd_p, gd_a):
+            torch.testing.assert_close(gd_k, want, rtol=1e-3, atol=1e-6)
+    else:
+        assert gd_k is None
+
+
+def test_backward_counts_one_launch_per_backward(dev):
+    depth, abm = _inputs(5, dev)
+    a = abm.clone().requires_grad_(True)
+    before = dict(tcuda.launch_counts)
+    for _ in range(3):
+        hr, lr = tcuda.tpsf_physics_fused(depth, a)
+        (lr ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert tcuda.launch_counts["tpsf_physics_bwd"] == before["tpsf_physics_bwd"] + 3
+    assert tcuda.launch_counts["tpsf_physics_fused"] == before["tpsf_physics_fused"] + 3
+
+
+def test_backward_empty_batch_launches_nothing(dev):
+    before = tcuda.launch_counts["tpsf_physics_bwd"]
+    gd, ga = tcuda.tpsf_physics_bwd(torch.zeros(0, 100, 100, device=dev), torch.ones(0, 3, device=dev),
+                                    None, torch.zeros(0, 4, 4, device=dev))
+    assert gd.shape == (0, 100, 100) and ga.shape == (0, 3)
+    a = torch.ones(0, 3, device=dev, requires_grad=True)
+    hr, lr = tcuda.tpsf_physics_fused(torch.zeros(0, 100, 100, device=dev), a)
+    lr.sum().backward()
+    assert a.grad.shape == (0, 3)
+    assert tcuda.launch_counts["tpsf_physics_bwd"] == before
+
+
+def test_backward_strided_and_misaligned_inputs(dev):
+    """A g_lr that is not contiguous and a depth that is not 16-byte
+    aligned give identical gradients."""
+    depth, abm = _inputs(5, dev)
+    g_hr, g_lr = _cotangents(5, dev, seed=9)
+    gd, ga = tcuda.tpsf_physics_bwd(depth, abm, g_hr, g_lr)
+    shifted = torch.empty(5 * 10000 + 1, device=dev)[1:].view(5, 100, 100)
+    shifted.copy_(depth)
+    g_lr_t = g_lr.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not g_lr_t.is_contiguous()
+    gd_s, ga_s = tcuda.tpsf_physics_bwd(shifted, abm, g_hr, g_lr_t)
+    assert torch.equal(gd_s, gd) and torch.equal(ga_s, ga)

@@ -26,7 +26,7 @@ from tactilesr_torch.config import tPSFNet_config
 from tactilesr_torch.data import generate
 from tactilesr_torch.models.tpsf_net import TPSFNet
 from tactilesr_torch.ops import cuda as tcuda
-from tactilesr_torch.ops.psf import physics_plain
+from tactilesr_torch.ops.psf import physics_plain, physics_vjp_plain
 from tactilesr_torch.runtime.checkpoint import load_checkpoint_file
 from tactilesr_torch.runtime.hooks import HookBase
 from tactilesr_torch.runtime.optim import adam_l2
@@ -71,19 +71,20 @@ def test_fused_gradients_match_jax(rng):
 
 
 def test_fused_backward_is_the_plain_autograd_in_f32(rng, monkeypatch):
-    """The recompute backward equals autograd through physics_plain, runs
-    with TF32 off whatever the global flag says, and restores the flag."""
+    """The CPU backward is one call of physics_vjp_plain, the backward
+    kernel's plain version, with TF32 off whatever the global flag says; it
+    restores the flag and equals autograd through physics_plain."""
     depth, abm = _physics_inputs(rng, b=2)
     a_ref = torch.from_numpy(abm).requires_grad_(True)
     (physics_plain(torch.from_numpy(depth), a_ref)[1] ** 2).sum().backward()
 
     seen = []
 
-    def spy(d, a):
-        seen.append(torch.backends.cuda.matmul.allow_tf32)
-        return physics_plain(d, a)
+    def spy(d, a, g_hr, g_lr, need_depth, need_abm):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, g_hr is None, need_depth, need_abm))
+        return physics_vjp_plain(d, a, g_hr, g_lr, need_depth, need_abm)
 
-    monkeypatch.setattr(tcuda, "physics_plain", spy)
+    monkeypatch.setattr(tcuda, "physics_vjp_plain", spy)
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -93,7 +94,7 @@ def test_fused_backward_is_the_plain_autograd_in_f32(rng, monkeypatch):
         assert torch.backends.cuda.matmul.allow_tf32 is True
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
-    assert seen == [True, False]  # the CPU forward, then the recompute
+    assert seen == [(False, True, False, True)]  # once, f32, LR cotangent only, abm only
     torch.testing.assert_close(a.grad, a_ref.grad, rtol=1e-6, atol=1e-9)
 
 
