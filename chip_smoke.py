@@ -4,7 +4,10 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build      -- compile tactilesr_torch/ops/cuda/tpsf_kernel.cu with nvcc
+1. build      -- compile tactilesr_torch/ops/cuda/tpsf_kernel.cu with nvcc;
+                 print each kernel's registers, spill bytes, static and
+                 dynamic shared memory and resident blocks per SM; the
+                 backward must fit 2 blocks per SM and neither kernel spill
 2. kernel     -- the tPSF physics kernel vs its plain PyTorch version at
                  B in {1, 5, 256, 8192} (TF32 off for the plain version;
                  HR rtol/atol 1e-4, LR rtol 1e-4 / atol 1e-6); the backward
@@ -32,7 +35,8 @@ Phases (any failure exits non-zero and prints no result line):
                  requests, held against the f32 eval forward; fused f32 vs
                  unfused f32; hot swap and refusal
 6. times      -- forward and backward kernel and plain times at B=256 and
-                 B=8192 (CUDA events); the train step at B=256 split into the
+                 B=8192 (CUDA events), and each kernel's share of its bound;
+                 the train step at B=256 split into the
                  physics forward, its kernel backward, the optimizer and the
                  whole step (CUDA events) and the card's busy time in them
                  (torch.profiler; the backward must issue at most 3 device
@@ -200,12 +204,25 @@ def cotangents(b, dev, seed):
 
 
 def phase_build():
+    """Build the kernels; their resources from ptxas and the occupancy the
+    CUDA runtime gives them.  Returns kernel_info()."""
     t0 = time.perf_counter()
     tcuda.build()
     log(f"[build] tpsf_kernel.cu built and loaded in {time.perf_counter() - t0:.2f} s")
-    for line in tcuda.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    ptxas = tcuda.ptxas_info(tcuda.build_log)
+    info = tcuda.kernel_info()
+    for name, k in info.items():
+        p = ptxas.get(name)
+        check(p is not None, f"ptxas reported nothing for {name}: {ptxas}")
+        log(f"[build] {name}: {k['threads']} threads, {p['registers']} registers, spill "
+            f"stores/loads {p['spill_stores']}/{p['spill_loads']} B, shared memory "
+            f"{p['static_smem']} B static + {k['dynamic_smem']} B dynamic, "
+            f"{k['blocks_per_sm']} resident blocks per SM")
+        check(p["spill_stores"] == 0 and p["spill_loads"] == 0 and k["local_bytes"] == 0,
+              f"{name} spills: ptxas {p}, runtime {k}")
+    check(info["tpsf_physics_bwd"]["blocks_per_sm"] >= 2,
+          f"the backward fits {info['tpsf_physics_bwd']['blocks_per_sm']} blocks per SM (at least 2)")
+    return info
 
 
 def phase_kernel(dev):
@@ -582,16 +599,18 @@ def phase_times(dev, pred):
         k_ms = cuda_ms(lambda: tcuda.tpsf_physics(depth, abm), iters)
         p_ms = cuda_ms(lambda: plain_f32(depth, abm), max(5, iters // 4))
         bound, by = tpsf_bound_ms(b)
-        times[b] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by)
+        times[b] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, bound_share=bound / k_ms)
         log(f"[times] tpsf_physics B={b}: kernel {k_ms:.4f} ms ({b / k_ms * 1e3:.0f} samples/s), "
-            f"plain (TF32 off) {p_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+            f"plain (TF32 off) {p_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+            f"{bound / k_ms * 100:.1f}% of the bound")
         g_lr = cotangents(b, dev, seed=200 + b)[1]  # the training call: LR cotangent, abm only
         k_ms = cuda_ms(lambda: tcuda.tpsf_physics_bwd(depth, abm, None, g_lr, need_depth=False), iters)
         p_ms = cuda_ms(lambda: vjp_plain_f32(depth, abm, None, g_lr, False), max(5, iters // 4))
         bound, by = tpsf_bwd_bound_ms(b)
-        bwd_times[b] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by)
+        bwd_times[b] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, bound_share=bound / k_ms)
         log(f"[times] tpsf_physics_bwd B={b} (LR cotangent, abm): kernel {k_ms:.4f} ms, plain "
-            f"physics_vjp_plain (TF32 off) {p_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+            f"physics_vjp_plain (TF32 off) {p_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+            f"{bound / k_ms * 100:.1f}% of the bound")
 
     # SRPredictor at bucket 1024: host clock around predict (H2D, compute, D2H)
     lr = (torch.rand(1024, 3, 4, 4, generator=torch.Generator().manual_seed(9)) * 4).numpy()
@@ -619,7 +638,7 @@ def main():
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)} (x{torch.cuda.device_count()})")
     t_all = time.perf_counter()
-    phase_build()
+    info = phase_build()
     errs = phase_kernel(dev)
     bwd_errs = phase_kernel_bwd(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
@@ -649,6 +668,8 @@ def main():
             "bound_ms": main_t["bound_ms"],
             "bound_by": main_t["bound_by"],
             "library_ms": None,
+            "bound_share": main_t["bound_share"],
+            "blocks_per_sm": info["tpsf_physics"]["blocks_per_sm"],
             "batch": MAIN_BATCH,
             "at_b8192": times[8192],
         },
@@ -665,6 +686,8 @@ def main():
             "bound_ms": bwd_times[MAIN_BATCH]["bound_ms"],
             "bound_by": bwd_times[MAIN_BATCH]["bound_by"],
             "library_ms": None,
+            "bound_share": bwd_times[MAIN_BATCH]["bound_share"],
+            "blocks_per_sm": info["tpsf_physics_bwd"]["blocks_per_sm"],
             "batch": MAIN_BATCH,
             "at_b8192": bwd_times[8192],
         },

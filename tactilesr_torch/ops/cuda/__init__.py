@@ -17,6 +17,10 @@ source: the vector-Jacobian product of the physics in f32, recomputed from
 (depth, abm) in one launch.  Its plain version is
 ``ops/psf.py::physics_vjp_plain``, taken for CPU tensors only.
 
+``kernel_info`` reports each kernel's occupancy and resources as the CUDA
+runtime sees them, and ``ptxas_info`` the registers, spills and static
+shared memory that ptxas printed when it compiled them.
+
 ``tpsf_physics_fused`` makes the kernels trainable: a ``torch.autograd.Function``
 (the port of ``tactilesr_tpu/ops/pallas/tpsf_kernel.py::get_fused``, a
 ``jax.custom_vjp``) whose forward is the forward kernel and whose backward is
@@ -30,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,7 +48,9 @@ from ..psf import (
 
 __all__ = [
     "build",
+    "kernel_info",
     "launch_counts",
+    "ptxas_info",
     "reset_launch_counts",
     "tpsf_physics",
     "tpsf_physics_bwd",
@@ -66,6 +73,9 @@ _lock = threading.Lock()
 _lib = None
 build_log = ""  # nvcc's output of the build this process loaded (ptxas -v)
 
+# kernel names as the C++ source spells them -> their launch-count names
+KERNELS = {"tpsf_physics_kernel": "tpsf_physics", "tpsf_physics_bwd_kernel": "tpsf_physics_bwd"}
+
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
@@ -82,44 +92,98 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
 
 
+def _compile(defines: tuple = ()) -> tuple:
+    """Compile (if needed) and load the kernel library built with the
+    preprocessor ``defines``: (library, nvcc's output).  Raises on failure."""
+    with open(_SOURCE, "rb") as f:
+        src = f.read()
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    so_path = os.path.join(BUILD_DIR, f"libtpsf_{tag}.so")
+    log_path = so_path[:-3] + ".log"
+    if os.path.exists(so_path) and os.path.exists(log_path):
+        with open(log_path) as f:
+            log = f.read()
+    else:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so_path}.{os.getpid()}.tmp"
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, _SOURCE], capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{log}")
+        with open(f"{log_path}.{os.getpid()}.tmp", "w") as f:
+            f.write(log)
+        os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)
+        os.replace(tmp, so_path)
+    lib = ctypes.CDLL(so_path)
+    lib.tpsf_physics_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.tpsf_physics_launch.restype = ctypes.c_int
+    lib.tpsf_physics_bwd_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.tpsf_physics_bwd_launch.restype = ctypes.c_int
+    lib.tpsf_kernel_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.tpsf_kernel_info.restype = ctypes.c_int
+    lib.tpsf_error_string.argtypes = [ctypes.c_int]
+    lib.tpsf_error_string.restype = ctypes.c_char_p
+    return lib, log
+
+
 def build() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library; raises on failure."""
     global _lib, build_log
     with _lock:
-        if _lib is not None:
-            return _lib
-        with open(_SOURCE, "rb") as f:
-            src = f.read()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so_path = os.path.join(BUILD_DIR, f"libtpsf_{tag}.so")
-        if not os.path.exists(so_path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so_path}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-                capture_output=True, text=True,
-            )
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{build_log}")
-            os.replace(tmp, so_path)
-        lib = ctypes.CDLL(so_path)
-        lib.tpsf_physics_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            ctypes.c_float, ctypes.c_void_p,
-        ]
-        lib.tpsf_physics_launch.restype = ctypes.c_int
-        lib.tpsf_physics_bwd_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ]
-        lib.tpsf_physics_bwd_launch.restype = ctypes.c_int
-        lib.tpsf_error_string.argtypes = [ctypes.c_int]
-        lib.tpsf_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib, build_log = _compile()
+        return _lib
+
+
+def kernel_info() -> dict:
+    """Per kernel (by launch-count name), on the current CUDA device:
+    resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    at the launch's threads and dynamic shared memory), threads per block,
+    dynamic and static shared bytes, registers and local (spill) bytes per
+    thread.  Builds the library if needed; raises on a CUDA error."""
+    lib = build()
+    info = {}
+    for which, name in enumerate(KERNELS.values()):
+        out = (ctypes.c_int * 6)()
+        err = lib.tpsf_kernel_info(which, out)
+        if err != 0:
+            raise RuntimeError(f"tpsf_kernel_info({name}) failed: {lib.tpsf_error_string(err).decode()}")
+        info[name] = dict(zip(("blocks_per_sm", "threads", "dynamic_smem", "static_smem",
+                               "registers", "local_bytes"), out))
+    return info
+
+
+def ptxas_info(log: str) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel from
+    the ``-Xptxas -v`` lines in ``log`` (``build_log``), by launch-count
+    name; a kernel ptxas did not report is missing."""
+    info, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = next((v for k, v in KERNELS.items() if re.search(rf"\d{k}E", m.group(1))), None)
+            continue
+        if name is None:
+            continue
+        entry = info.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry["spill_stores"], entry["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            entry["static_smem"] = int(m.group(1)) if m else 0
+    return info
 
 
 def _check(depth: torch.Tensor, abm: torch.Tensor) -> None:

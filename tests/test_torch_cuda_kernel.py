@@ -198,3 +198,52 @@ def test_backward_strided_and_misaligned_inputs(dev):
     assert not g_lr_t.is_contiguous()
     gd_s, ga_s = tcuda.tpsf_physics_bwd(shifted, abm, g_hr, g_lr_t)
     assert torch.equal(gd_s, gd) and torch.equal(ga_s, ga)
+
+
+def test_kernels_are_bitwise_reproducible(dev):
+    """Two launches on the same inputs give the same bits: no atomics, and
+    dbeta's partials are summed in a fixed order."""
+    depth, abm = _inputs(256, dev, seed=31)
+    g_hr, g_lr = _cotangents(256, dev, seed=32)
+    hr1, lr1 = tcuda.tpsf_physics(depth, abm)
+    hr2, lr2 = tcuda.tpsf_physics(depth, abm)
+    gd1, ga1 = tcuda.tpsf_physics_bwd(depth, abm, g_hr, g_lr)
+    gd2, ga2 = tcuda.tpsf_physics_bwd(depth, abm, g_hr, g_lr)
+    torch.cuda.synchronize()
+    assert torch.equal(hr1, hr2) and torch.equal(lr1, lr2)
+    assert torch.equal(gd1, gd2) and torch.equal(ga1, ga2)
+
+
+@pytest.mark.parametrize("b", [133, 265])
+def test_kernels_match_plain_across_wave_counts(dev, b):
+    """B = 133 and 265 put one sample beyond one and two full waves of the
+    backward (two blocks on each of 132 SMs) and the forward (three)."""
+    depth, abm = _inputs(b, dev, seed=b)
+    hr_k, lr_k = tcuda.tpsf_physics(depth, abm)
+    hr_p, lr_p = _plain(depth, abm)
+    torch.testing.assert_close(hr_k, hr_p, **HR_TOL)
+    torch.testing.assert_close(lr_k, lr_p, **LR_TOL)
+    g_hr, g_lr = _cotangents(b, dev, seed=b + 1)
+    gd_k, ga_k = tcuda.tpsf_physics_bwd(depth, abm, g_hr, g_lr)
+    with f32_matmul():
+        gd_p, ga_p = physics_vjp_plain(depth, abm, g_hr, g_lr, True, True)
+    torch.testing.assert_close(ga_k, ga_p, rtol=1e-3, atol=1e-6)
+    torch.testing.assert_close(gd_k, gd_p, rtol=1e-3, atol=1e-6)
+    assert torch.all(ga_k[-1] == 0) and torch.all(hr_k[-1] == 0) and torch.all(lr_k[-1] == 0)
+
+
+def test_occupancy_is_as_designed(dev):
+    """The backward fits two blocks per SM (B <= 264 runs in one wave), the
+    forward three."""
+    info = tcuda.kernel_info()
+    assert info["tpsf_physics_bwd"]["blocks_per_sm"] >= 2, info
+    assert info["tpsf_physics"]["blocks_per_sm"] >= 3, info
+
+
+def test_kernels_do_not_spill(dev):
+    tcuda.build()
+    ptxas = tcuda.ptxas_info(tcuda.build_log)
+    info = tcuda.kernel_info()
+    for name in ("tpsf_physics", "tpsf_physics_bwd"):
+        assert ptxas[name]["spill_stores"] == 0 and ptxas[name]["spill_loads"] == 0, ptxas
+        assert info[name]["local_bytes"] == 0, info
