@@ -26,29 +26,48 @@ Phases (any failure exits non-zero and prints no result line):
                  alpha/beta curves must be finite; then the wrapper's
                  gradients (kernel forward, kernel backward) vs autograd
                  through the plain physics at B=256 (rtol 1e-3, atol 1e-6)
-4. generation -- ``generate single --sample-cnt 4 --batch 256`` from the
-                 checkpoint that training wrote; the kernel's launch count
-                 must rise and the outputs must be finite and match the
-                 plain physics
-5. serving    -- a seeded full-width STSR (scale 10, 6 MSRB, 1 ResBlock,
-                 perturbed BN stats) served by SRPredictor in bf16 for three
-                 requests, held against the f32 eval forward; fused f32 vs
-                 unfused f32; hot swap and refusal
-6. times      -- forward and backward kernel and plain times at B=256 and
+4. generation -- ``generate single --sample-cnt 32 --batch 256`` from the
+                 checkpoint that training wrote (2,688 train, 384 validation
+                 and 384 test samples); the kernel must launch 11 + 2 + 2
+                 times and the outputs must be finite and match the plain
+                 physics
+5. sr         -- STSR through its entry (``tasks/sr_task.py``) at the
+                 recipe's defaults (scale 10, 6 MSRB, batch 32, bf16, warmup
+                 2000 in auto mode) for 2 epochs (168 steps) on those
+                 labels: every loss and eval metric finite, every parameter
+                 and BN running statistic moved, every num_batches_tracked
+                 equal to the step count; then 2 SRTrainer steps of the
+                 full-width f32 STSR at batch 8 on the card and on the CPU
+                 (TF32 off), held against each other
+6. seqs       -- ``generate seqs --sample-cnt 32 --n-contacts 3
+                 --n-translations 9`` (864 rows) through the kernel, its test
+                 split against the plain physics; one epoch of the full-width
+                 MTSR (seqsCnt 7, 21 steps at batch 32) through
+                 ``tasks/sr_seqs_task.py``, warm-started from the STSR
+                 checkpoint with its trunk bit for bit
+7. serving    -- both trained checkpoints served by SRPredictor (bf16,
+                 fused) against their own f32 eval forward; a seeded
+                 full-width STSR (perturbed BN stats) served for three
+                 requests; fused f32 vs unfused f32; hot swap and refusal
+8. times      -- forward and backward kernel and plain times at B=256 and
                  B=8192 (CUDA events), and each kernel's share of its bound;
                  the train step at B=256 split into the
                  physics forward, its kernel backward, the optimizer and the
                  whole step (CUDA events) and the card's busy time in them
                  (torch.profiler; the backward must issue at most 3 device
-                 ops); SRPredictor frames/s at bucket 1024
+                 ops); SRPredictor frames/s at bucket 1024; the STSR and MTSR
+                 train steps at batch 32 (CUDA events), their device ops,
+                 busy time and largest ops (torch.profiler) and model FLOPs
+                 utilisation against the bf16 dense peak, and the eval call
 
-The second-to-last line is the per-kernel JSON record, the line before it
+Each phase prints its seconds.  The second-to-last line is the per-kernel JSON record, the line before it
 the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -59,7 +78,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from tactilesr_torch.config import tPSFNet_config  # noqa: E402
+from tactilesr_torch.config import tactileSeqs_config, tactileSR_config, tPSFNet_config  # noqa: E402
 from tactilesr_torch.data import generate  # noqa: E402
 from tactilesr_torch.data.datasets import SingleTapSeqsDataset  # noqa: E402
 from tactilesr_torch.models.inference import fold_inference_params, tactile_sr_infer  # noqa: E402
@@ -70,7 +89,9 @@ from tactilesr_torch.ops.psf import f32_matmul, physics_plain, physics_vjp_plain
 from tactilesr_torch.runtime.checkpoint import load_checkpoint_file, save_checkpoint_file  # noqa: E402
 from tactilesr_torch.runtime.hooks import HookBase  # noqa: E402
 from tactilesr_torch.serving import SRPredictor  # noqa: E402
-from tactilesr_torch.tasks import tpsf_task  # noqa: E402
+from tactilesr_torch.runtime.optim import adam_l2  # noqa: E402
+from tactilesr_torch.runtime.schedule import LRWarmupSchedule, StepLR  # noqa: E402
+from tactilesr_torch.tasks import sr_seqs_task, sr_task, tpsf_task  # noqa: E402
 
 HR_TOL = dict(rtol=1e-4, atol=1e-4)
 LR_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -85,8 +106,12 @@ BF16_REL = 5e-2
 # fused f32 vs unfused f32: same function, other conv order/algorithms
 F32_RTOL, F32_ATOL_REL = 1e-4, 1e-4
 
+SR_EPOCHS = 2
+SR_PARITY_BATCH, SR_PARITY_STEPS = 8, 2
+
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12  # f32 on the CUDA cores (no tensor cores)
+PEAK_BF16_FLOPS = 989e12  # bf16 on the tensor cores
 PEAK_HBM_BPS = 3.35e12
 
 
@@ -394,31 +419,12 @@ def phase_training(work, dev):
     return trainer, raw, ckpt, launches, grad_err, trainer.n_train / epoch_s
 
 
-def phase_generation(work, dev, raw, ckpt):
-    out_dir = os.path.join(work, "SRdataset")
-    tcuda.reset_launch_counts()
-    generate._cli(["single", "--tpsf-checkpoint", ckpt, "--raw-dir", raw, "--out-dir", out_dir,
-                   "--sample-cnt", "4", "--batch", str(MAIN_BATCH)])
-    torch.cuda.synchronize()
-    launches = dict(tcuda.launch_counts)
-    for name in ("tpsf_physics", "tpsf_physics_fused"):
-        check(launches[name] > 0, f"generate single launched no {name}: {launches}")
+GEN_SPLITS = {"train": 2688, "validation": 384, "test": 384}  # SINGLE_SPLITS x 3 blobs x 32
 
-    total = 0
-    for split in ("train", "validation", "test"):
-        with np.load(os.path.join(out_dir, f"SRdataset_{split}.npz")) as z:
-            arrays = {k: z[k] for k in z.files}
-        n = arrays["LR"].shape[0]
-        total += n
-        check(n > 0, f"split {split} is empty")
-        check(arrays["HR"].shape == (n, 1, 100, 100), f"{split} HR shape {arrays['HR'].shape}")
-        for k, v in arrays.items():
-            check(np.isfinite(v).all(), f"{split}/{k} has non-finite values")
-    log(f"[generation] {total} samples in 3 splits, tpsf_physics launches={launches['tpsf_physics']}")
 
-    # the test split again through the plain physics on the card
-    with np.load(os.path.join(out_dir, "SRdataset_test.npz")) as z:
-        lr, depth, hr, deg = z["LR"], z["depth"], z["HR"], z["LR_degrade"]
+def _plain_physics_check(ckpt, dev, lr, depth, hr, deg=None):
+    """HR (and LR_degrade) of a generated split against the plain physics
+    on the card, TF32 off."""
     ref = TPSFNet(use_kernel=False)
     ref.load_state_dict(load_checkpoint_file(ckpt)["model"])
     ref = ref.to(dev).eval()
@@ -426,9 +432,338 @@ def phase_generation(work, dev, raw, ckpt):
         hr_r, deg_r, _, _ = ref(torch.from_numpy(lr).to(dev), torch.from_numpy(depth).to(dev),
                                 return_psf=False)
     torch.testing.assert_close(torch.from_numpy(hr), hr_r.cpu(), **HR_TOL)
-    torch.testing.assert_close(torch.from_numpy(deg), deg_r.cpu(), **LR_TOL)
+    if deg is not None:
+        torch.testing.assert_close(torch.from_numpy(deg), deg_r.cpu(), **LR_TOL)
+
+
+def phase_generation(work, dev, raw, ckpt):
+    out_dir = os.path.join(work, "SRdataset")
+    tcuda.reset_launch_counts()
+    generate._cli(["single", "--tpsf-checkpoint", ckpt, "--raw-dir", raw, "--out-dir", out_dir,
+                   "--sample-cnt", str(tPSFNet_config["sample_cnt"]), "--batch", str(MAIN_BATCH)])
+    torch.cuda.synchronize()
+    launches = dict(tcuda.launch_counts)
+    for name in ("tpsf_physics", "tpsf_physics_fused"):
+        check(launches[name] > 0, f"generate single launched no {name}: {launches}")
+    want = sum(-(-n // MAIN_BATCH) for n in GEN_SPLITS.values())
+    check(launches["tpsf_physics"] == want, f"{launches['tpsf_physics']} launches, expected {want}")
+
+    for split, n_want in GEN_SPLITS.items():
+        with np.load(os.path.join(out_dir, f"SRdataset_{split}.npz")) as z:
+            arrays = {k: z[k] for k in z.files}
+        n = arrays["LR"].shape[0]
+        check(n == n_want, f"split {split} has {n} samples, expected {n_want}")
+        check(arrays["HR"].shape == (n, 1, 100, 100), f"{split} HR shape {arrays['HR'].shape}")
+        for k, v in arrays.items():
+            check(np.isfinite(v).all(), f"{split}/{k} has non-finite values")
+    log(f"[generation] {GEN_SPLITS} samples, tpsf_physics launches={launches['tpsf_physics']}")
+
+    # the test split again through the plain physics on the card
+    with np.load(os.path.join(out_dir, "SRdataset_test.npz")) as z:
+        lr, depth, hr, deg = z["LR"], z["depth"], z["HR"], z["LR_degrade"]
+    _plain_physics_check(ckpt, dev, lr, depth, hr, deg)
     log("[generation] test split matches the plain physics (HR 1e-4, LR 1e-6) ok")
-    return launches, lr
+    return launches, lr, out_dir
+
+
+def sr_flops_per_frame(scale=10, seqs=1, pattern_layers=6, force_layers=1, hw=None):
+    """Forward conv FLOPs of one frame of TactileSR (2 x MACs; the resizes,
+    BN and activations left out): every conv runs at (4 x scale)^2."""
+    px = (hw or 4 * scale) ** 2
+
+    def conv(cin, cout, k):
+        return 2 * cin * cout * k * k * px
+
+    branch = conv(3, 64, 3) + conv(64, 64, 3)
+    msrb = conv(64, 64, 3) + conv(64, 64, 5) + conv(128, 128, 3) + conv(128, 128, 5) + conv(256, 64, 1)
+    force = conv(3, 64, 3) + force_layers * 2 * conv(64, 64, 3)
+    head = conv(128, 128, 3) + conv(128, 1, 3)
+    parts = {"pattern branches": seqs * branch, "inputContact": conv(64 * seqs, 64, 3),
+             "MSRBs": pattern_layers * msrb, "force branch": force, "head": head}
+    return sum(parts.values()), parts
+
+
+class StartState(HookBase):
+    """The model's state when training starts; with ``trunk`` (an STSR
+    state_dict) it also holds the warm-started trunk against it, bit for
+    bit."""
+
+    def __init__(self, trunk=None):
+        self.trunk = trunk
+        self.state = None
+        self.trunk_mismatch = None
+
+    def before_train(self):
+        self.state = {k: v.detach().cpu().clone() for k, v in self.trainer.model.state_dict().items()}
+        if self.trunk is not None:
+            self.trunk_mismatch = [k for k, v in self.trunk.items() if not torch.equal(self.state[k], v)]
+
+
+def _check_sr_run(name, trainer, start, steps):
+    """Losses and eval metrics finite, every parameter moved, every BN
+    running statistic off its init, every num_batches_tracked = steps."""
+    losses = trainer.metric_storage["total_loss"]
+    check(trainer.step == steps, f"{name}: {trainer.step} optimizer steps, expected {steps}")
+    check(len(losses) == steps and np.isfinite(losses.global_sum),
+          f"{name} losses: {len(losses)} logged, global sum {losses.global_sum}")
+    evals = {k: trainer.metric_storage[k].latest for k in ("test_loss", "test_PSNR", "test_SSIM")}
+    check(all(np.isfinite(v) for v in evals.values()), f"{name} eval {evals}")
+    end = trainer.model.state_dict()
+    n_param = n_bn = 0
+    least = float("inf")
+    for k, v in start.items():
+        now = end[k].detach().cpu()
+        if k.endswith("num_batches_tracked"):
+            check(int(now) - int(v) == steps, f"{name}: {k} = {int(now)} after {steps} steps from {int(v)}")
+        elif k.endswith(("running_mean", "running_var")):
+            n_bn += 1
+            init = 0.0 if k.endswith("mean") else 1.0
+            check(bool((now != init).any()) and not torch.equal(now, v), f"{name}: {k} did not move")
+        else:
+            n_param += 1
+            moved = float((now - v).abs().max())
+            least = min(least, moved)
+            check(moved > 0, f"{name}: parameter {k} did not move")
+    log(f"[{name}] {steps} steps: every one of {n_param} parameters moved (the least by "
+        f"{least:.3e}), {n_bn} BN running statistics moved, num_batches_tracked = steps; mean loss "
+        f"{losses.global_avg:.6g}, last {losses.latest:.6g}; eval {evals}")
+
+
+def phase_sr_training(work, sr_dir):
+    """STSR through its entry at the recipe's defaults on the generated labels."""
+    save_dir = os.path.join(work, "stsr")
+    argv = ["--train_dataset_dir", os.path.join(sr_dir, "SRdataset_train.npz"),
+            "--test_dataset_dir", os.path.join(sr_dir, "SRdataset_test.npz"),
+            "--save_dir", save_dir, "--epochs", str(SR_EPOCHS), "--inference_test", "false"]
+    clock, start = EpochClock(), StartState()
+    t0 = time.perf_counter()
+    trainer = sr_task._cli(argv, hooks=[clock, start])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cfg = trainer.config
+    keys = ("train_batch_size", "test_batch_size", "lr", "weight_decay", "warmup_t", "warmup_mode",
+            "warmup_init_lr", "warmup_factor", "lr_scheduler_step_size", "lr_scheduler_gamma",
+            "compute_dtype", "scale_factor", "seqsCnt", "patternFeatureExtraLayerCnt",
+            "forceFeatureExtraLayerCnt", "head_init", "device", "random_seed")
+    recipe = {k: cfg[k] for k in keys}
+    check(recipe == {k: tactileSR_config[k] for k in keys}, f"not the recipe's defaults: {recipe}")
+    check(trainer.model.dtype == torch.bfloat16, "the STSR does not compute in bf16")
+    check((trainer.n_train, trainer.epoch_len) == (GEN_SPLITS["train"], 84),
+          f"expected 2,688 train samples in 84 steps, got {trainer.n_train} in {trainer.epoch_len}")
+    _check_sr_run("sr", trainer, start.state, SR_EPOCHS * trainer.epoch_len)
+    ckpt = os.path.join(save_dir, "checkpoints", "latest.pth")
+    check(load_checkpoint_file(ckpt)["epoch"] == SR_EPOCHS - 1, "latest.pth is not the last epoch")
+    check(len(clock.seconds) == SR_EPOCHS, f"epoch clock read {clock.seconds}")
+    sps = trainer.n_train / clock.seconds[-1]
+    log(f"[sr] STSR {SR_EPOCHS} epochs x {trainer.epoch_len} steps at B={cfg['train_batch_size']} "
+        f"in {wall:.2f} s (entry wall clock, data preparation included); epoch seconds "
+        f"{clock.seconds}; the last: {sps:.1f} samples/s (host clock, card synced at both ends, "
+        "the epoch's eval and checkpoint included)")
+    return trainer, ckpt, sps
+
+
+def _state_deviation(got, want, lr, steps, stats_atol):
+    """Max deviations of two SR training states (BN statistics, parameters
+    and the pre-BN conv biases apart).  BN statistics at ``stats_atol``;
+    every parameter element within 2 x lr x steps, and all but 1% of the
+    parameters' elements (the pre-BN conv biases aside) within 1e-5.  In
+    f32 the gradients through the BatchNorm chain carry rounding of the size
+    of BN's output gradient, and Adam turns an element whose true gradient
+    lies under it into a step of about lr of the rounding's sign; the
+    pre-BN conv biases have a true gradient of 0, so all their elements are
+    such elements."""
+    dev = {"stats": 0.0, "params": 0.0, "pre_bn_bias": 0.0, "elements_over_1e-5": 0}
+    n_elements, worst = 0, []
+    for k, v in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        d = (got[k] - v).abs()
+        if k.endswith(("running_mean", "running_var")):
+            check(float(d.max()) <= stats_atol, f"{k}: max|d| {float(d.max()):.3e} > {stats_atol}")
+            dev["stats"] = max(dev["stats"], float(d.max()))
+            continue
+        check(float(d.max()) <= 2 * lr * steps, f"{k}: max|d| {float(d.max()):.3e} > 2 lr steps")
+        if re.search(r"conv_[35]_[12]\.0\.bias$", k):
+            dev["pre_bn_bias"] = max(dev["pre_bn_bias"], float(d.max()))
+            continue
+        over = int((d > 1e-5).sum())
+        n_elements += d.numel()
+        dev["params"] = max(dev["params"], float(d.max()))
+        dev["elements_over_1e-5"] += over
+        if over:
+            worst.append((over, d.numel(), k))
+    dev["parameter_elements"] = n_elements
+    dev["most_over_1e-5"] = sorted(worst, reverse=True)[:4]
+    check(dev["elements_over_1e-5"] <= 0.01 * n_elements,
+          f"{dev['elements_over_1e-5']} of {n_elements} parameter elements beyond 1e-5: {worst}")
+    return dev
+
+
+def phase_sr_parity(work, sr_dir, devices=("cuda", "cpu")):
+    """2 SRTrainer steps of the full-width f32 STSR at batch 8 from one
+    seeded init on the same 8 generated samples, on the card and on the CPU
+    (TF32 off for convs and matmuls): losses at rtol 1e-4; after step 1 the
+    BN running statistics at atol 1e-5, after step 2 at 5e-4 (they then
+    read weights that parted as ``_state_deviation`` says); parameters per
+    element (``_state_deviation``)."""
+    cfg = dict(tactileSR_config, compute_dtype="float32", warmup_t=0, train_batch_size=SR_PARITY_BATCH)
+    with np.load(os.path.join(sr_dir, "SRdataset_train.npz")) as z:
+        arrays = {"LR": z["LR"][:SR_PARITY_BATCH], "HR": z["HR"][:SR_PARITY_BATCH]}
+    init = sr_task.build_model(cfg).state_dict()
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    runs = {}
+    try:
+        for device in devices:
+            model = sr_task.build_model(cfg)
+            model.load_state_dict(init)
+            snaps = []
+
+            class _Snap(HookBase):
+                def after_iter(self):
+                    snaps.append({k: v.detach().cpu().clone()
+                                  for k, v in self.trainer.model.state_dict().items()})
+
+            t0 = time.perf_counter()
+            t = sr_task.SRTrainer(
+                config=cfg, model=model,
+                optimizer=adam_l2(model.parameters(), weight_decay=cfg["weight_decay"]),
+                lr_schedule=LRWarmupSchedule(StepLR(cfg["lr"], cfg["lr_scheduler_step_size"],
+                                                    cfg["lr_scheduler_gamma"]),
+                                             by_epoch=True, epoch_len=1),
+                train_arrays=arrays, batch_size=SR_PARITY_BATCH, max_epochs=SR_PARITY_STEPS,
+                work_dir=os.path.join(work, f"sr_parity_{device}"), seed=0, device=device)
+            t.register_hooks([_Snap()])
+            t.train(auto_resume=False)
+            runs[device] = (t.metric_storage["total_loss"].state_dict()["values"], snaps)
+            log(f"[sr] parity: {SR_PARITY_STEPS} f32 steps at B={SR_PARITY_BATCH} on {device} in "
+                f"{time.perf_counter() - t0:.2f} s")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    (loss_g, snap_g), (loss_c, snap_c) = (runs[d] for d in devices)
+    np.testing.assert_allclose(loss_g, loss_c, rtol=1e-4)
+    lr = cfg["lr"]
+    first = _state_deviation(snap_g[0], snap_c[0], lr, 1, stats_atol=1e-5)
+    last = _state_deviation(snap_g[-1], snap_c[-1], lr, SR_PARITY_STEPS, stats_atol=5e-4)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(loss_g, loss_c))
+    log(f"[sr] card vs CPU, full-width f32 STSR, {SR_PARITY_STEPS} steps at B={SR_PARITY_BATCH}: "
+        f"losses {loss_g} vs {loss_c} (max rel {loss_err:.3e}, rtol 1e-4); after step 1 {first}; "
+        f"after step {SR_PARITY_STEPS} {last} (stats atol 1e-5 then 5e-4; parameters within "
+        "2 lr steps, at most 1% of their elements beyond 1e-5) ok")
+    return dict(loss_rel=loss_err, step1=first, last=last)
+
+
+def phase_generation_seqs(work, dev, raw, ckpt):
+    out_dir = os.path.join(work, "SeqsDataset")
+    tcuda.reset_launch_counts()
+    generate._cli(["seqs", "--tpsf-checkpoint", ckpt, "--raw-dir", raw, "--out-dir", out_dir,
+                   "--sample-cnt", str(tPSFNet_config["sample_cnt"]), "--n-contacts", "3",
+                   "--n-translations", "9", "--batch", str(MAIN_BATCH)])
+    torch.cuda.synchronize()
+    launches = dict(tcuda.launch_counts)
+    check(launches["tpsf_physics"] > 0, f"generate seqs launched no tpsf_physics: {launches}")
+    sizes = {}
+    for split, n_want in (("train", 672), ("validation", 96), ("test", 96)):
+        with np.load(os.path.join(out_dir, f"SRdataset_{split}_32.npz")) as z:
+            arrays = {k: z[k] for k in z.files}
+        n = sizes[split] = arrays["LR"].shape[0]
+        check(n == n_want, f"seqs split {split} has {n} rows, expected {n_want}")
+        check(arrays["LR"].shape == (n, 21, 4, 4) and arrays["HR"].shape == (n, 1, 100, 100),
+              f"seqs {split} shapes {arrays['LR'].shape} {arrays['HR'].shape}")
+        for k, v in arrays.items():
+            check(np.isfinite(v).all(), f"seqs {split}/{k} has non-finite values")
+    with np.load(os.path.join(out_dir, "SRdataset_test_32.npz")) as z:
+        # the HR comes from the 30-degree frame, the first 3 channels
+        _plain_physics_check(ckpt, dev, np.ascontiguousarray(z["LR"][:, :3]), z["depth"], z["HR"])
+    log(f"[seqs] generate seqs: {sizes} rows, tpsf_physics launches={launches['tpsf_physics']}; "
+        "the test split's HR matches the plain physics (rtol/atol 1e-4) ok")
+    return launches, out_dir
+
+
+def phase_mtsr_training(work, seqs_dir, stsr_ckpt):
+    """One epoch of the full-width MTSR through its entry, warm-started
+    from the STSR checkpoint; the trunk it starts from is the checkpoint's."""
+    save_dir = os.path.join(work, "mtsr")
+    argv = ["--train_dataset_dir", os.path.join(seqs_dir, "SRdataset_train_32.npz"),
+            "--test_dataset_dir", os.path.join(seqs_dir, "SRdataset_test_32.npz"),
+            "--save_dir", save_dir, "--epochs", "1", "--inference_test", "false",
+            "--load_checkpoint_dir", stsr_ckpt]
+    trunk = {k: v for k, v in load_checkpoint_file(stsr_ckpt)["model"].items()
+             if k.startswith(sr_task.TRUNK_PREFIXES)}
+    clock, start = EpochClock(), StartState(trunk)
+    trainer = sr_seqs_task._cli(argv, hooks=[clock, start])
+    torch.cuda.synchronize()
+    cfg = trainer.config
+    check((cfg["seqsCnt"], cfg["lr"], trainer.model.dtype) ==
+          (tactileSeqs_config["seqsCnt"], tactileSeqs_config["lr"], torch.bfloat16),
+          f"not the seqs recipe: {cfg['seqsCnt']} {cfg['lr']} {trainer.model.dtype}")
+    check(trainer.lr_schedule.warmup_t == 0, "the seqs recipe got a warmup")
+    check(trainer.epoch_len == 21, f"{trainer.epoch_len} MTSR steps per epoch, expected 21")
+    check(len(trunk) > 0 and start.trunk_mismatch == [],
+          f"the MTSR trunk differs from the STSR checkpoint in {start.trunk_mismatch}")
+    log(f"[seqs] the MTSR started from the STSR trunk bit for bit ({len(trunk)} tensors)")
+    # the transferred num_batches_tracked start at the STSR's count
+    _check_sr_run("seqs", trainer, start.state, trainer.epoch_len)
+    sps = trainer.n_train / clock.seconds[-1]
+    log(f"[seqs] MTSR epoch: {trainer.n_train} rows in {trainer.epoch_len} steps, "
+        f"{clock.seconds[-1]:.4f} s = {sps:.1f} samples/s (host clock, card synced at both ends)")
+    return trainer, os.path.join(save_dir, "checkpoints", "latest.pth"), sps
+
+
+def _trained_model(ckpt, seqs_cnt, dtype=torch.float32):
+    model = TactileSR(scale_factor=10, seqs_cnt=seqs_cnt, pattern_feature_extra_layer_cnt=6,
+                      force_feature_extra_layer_cnt=1, dtype=dtype)
+    model.load_state_dict(load_checkpoint_file(ckpt)["model"], strict=True)
+    return model
+
+
+def phase_serving_trained(dev, stsr_ckpt, sr_dir, mtsr_ckpt, seqs_dir):
+    """Both trained checkpoints through SRPredictor (bf16, fused, the default
+    buckets) on their test splits, against their own f32 eval forward.  The
+    fold must be exact (fused f32 vs unfused f32 at F32_RTOL), and the
+    served bf16 output within BF16_REL of the output range, or, where the
+    model's own bf16 eval forward already strays further (BatchNorm
+    subtracting running means much larger than the spread, so bf16's
+    relative rounding of the conv output is magnified), within twice that
+    stray."""
+    out = {}
+    for name, ckpt, path, seqs_cnt in (
+            ("STSR", stsr_ckpt, os.path.join(sr_dir, "SRdataset_test.npz"), 1),
+            ("MTSR", mtsr_ckpt, os.path.join(seqs_dir, "SRdataset_test_32.npz"), 7)):
+        with np.load(path) as z:
+            lr = np.ascontiguousarray(z["LR"][:, :3 * seqs_cnt])
+        x = torch.from_numpy(lr)
+        sr = SRPredictor(ckpt, seqs_cnt=seqs_cnt).predict(lr)
+        check(sr.shape == (lr.shape[0], 1, 40, 40) and np.isfinite(sr).all(), f"{name}: {sr.shape}")
+        ref = _unfused_f32(_trained_model(ckpt, seqs_cnt), x, dev).cpu().numpy()
+        own = _unfused_f32(_trained_model(ckpt, seqs_cnt, torch.bfloat16), x, dev).cpu().numpy()
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            fused32 = SRPredictor(ckpt, seqs_cnt=seqs_cnt, compute_dtype="float32").predict(lr)
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+        scale = float(np.abs(ref).max())
+        np.testing.assert_allclose(fused32, ref, rtol=F32_RTOL, atol=F32_ATOL_REL * max(scale, 1e-12))
+        err, own_err = float(np.abs(sr - ref).max()), float(np.abs(own - ref).max())
+        rms = float(np.sqrt(np.mean((sr - ref) ** 2)) / max(np.sqrt(np.mean(ref ** 2)), 1e-12))
+        if scale == 0:  # the last ReLU closed at every pixel: served, the zeros must stay zeros
+            log(f"[serving] trained {name}: its f32 eval forward is all zero (under the running "
+                "statistics every pre-activation of the last ReLU is negative); the served "
+                "output must be zero too")
+        limit = max(BF16_REL * scale, 2 * own_err)
+        out[name] = dict(frames=lr.shape[0], ref_max=scale, bf16_max_abs=err, bf16_rel_rms=rms,
+                         own_bf16_max_abs=own_err,
+                         fused_f32_max_abs=float(np.abs(fused32 - ref).max()))
+        log(f"[serving] trained {name} ({os.path.basename(os.path.dirname(os.path.dirname(ckpt)))}"
+            f"/latest.pth), {lr.shape[0]} test frames: fused f32 vs unfused f32 max|d|="
+            f"{out[name]['fused_f32_max_abs']:.3e} (rtol {F32_RTOL}, atol {F32_ATOL_REL} x ref max) ok; "
+            f"served bf16 vs f32 eval max|d|={err:.4g} (relative RMS {rms:.3e}), the model's own "
+            f"bf16 eval forward {own_err:.4g}, ref max {scale:.4g}; limit {limit:.4g} = max({BF16_REL} "
+            "x ref max, 2 x its own)")
+        check(err <= limit, f"trained {name}: bf16 max|d|={err:.4g} > {limit:.4g}")
+    return out
 
 
 def _stsr(seed, pattern_layers=6):
@@ -629,6 +964,61 @@ def phase_times(dev, pred):
     return times, bwd_times
 
 
+def phase_sr_times(runs):
+    """For each (name, trainer, test split, seqs) in ``runs``: the train step
+    at the recipe's batch (CUDA events), its device ops, busy time and
+    largest ops (torch.profiler), its model FLOPs utilisation (conv FLOPs
+    over the bf16 dense peak), and the eval call over the test split."""
+    from tactilesr_torch.data.loader import epoch_batches
+
+    out = {}
+    for name, t, path, seqs in runs:
+        b = t.batch_size
+        per_frame, parts = sr_flops_per_frame(seqs=seqs)
+        log(f"[times] {name} forward conv FLOPs per frame: {per_frame / 1e9:.3f} G = "
+            + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items()))
+        idx, mask = next(epoch_batches(t.n_train, b, True, np.random.default_rng(0)))
+        weights = mask.reshape(t.grad_accum, -1).sum(axis=1)
+        idx_t, mask_t = t._to_device(idx), t._to_device(mask)
+        lr_now = t.lr
+
+        def step():
+            return t._step(idx_t, mask_t, lr_now, weights)
+
+        ms = cuda_ms(step, 20)
+        prof = device_profile(step)
+        flops = 3 * per_frame * b  # forward and backward (twice the forward)
+        bound = flops / PEAK_BF16_FLOPS * 1e3
+        with np.load(path) as z:
+            arrays = {"LR": z["LR"], "HR": z["HR"]}
+        eval_ms = cuda_ms(sr_task.build_eval_fn(t, arrays), 3, warmup=1)
+        busy = prof["busy_ms"]
+        share = "not measured" if busy is None else f"{busy:.4f} ms = {busy / ms * 100:.1f}% of the step"
+        out[name] = dict(batch=b, step_ms=ms, step_tflop=flops / 1e12, bound_ms=bound, mfu=bound / ms,
+                         step_profile=prof, eval_ms=eval_ms, eval_rows=int(arrays["LR"].shape[0]))
+        log(f"[times] {name} train step B={b} (bf16): {ms:.4f} ms (CUDA events, 20 steps); "
+            f"{prof['kernels']:.0f} device ops per step, device busy {share}; largest: {prof['top']}; "
+            f"{flops / 1e12:.4f} TFLOP of convs per step, bound {bound:.4f} ms at the bf16 dense "
+            f"peak, MFU {bound / ms * 100:.2f}%; eval of {arrays['LR'].shape[0]} test rows "
+            f"{eval_ms:.3f} ms")
+    log("[times] sr " + json.dumps(out))
+    return out
+
+
+class PhaseClock:
+    """Seconds of each phase, printed as it ends."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def __call__(self, name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        self.seconds[name] = time.perf_counter() - t0
+        log(f"[phase] {name}: {self.seconds[name]:.1f} s")
+        return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -638,21 +1028,38 @@ def main():
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)} (x{torch.cuda.device_count()})")
     t_all = time.perf_counter()
-    info = phase_build()
-    errs = phase_kernel(dev)
-    bwd_errs = phase_kernel_bwd(dev)
+    phase = PhaseClock()
+    info = phase("build", phase_build)
+    errs = phase("kernel", phase_kernel, dev)
+    bwd_errs = phase("kernel_bwd", phase_kernel_bwd, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        trainer, raw, ckpt, train_launches, grad_err, epoch_sps = phase_training(work, dev)
+        trainer, raw, ckpt, train_launches, grad_err, epoch_sps = phase("training", phase_training,
+                                                                         work, dev)
         # the recipe allowed TF32 for f32 matmuls (matmul_precision "default");
         # stage 2 runs in a process of its own, at torch's default
         torch.set_float32_matmul_precision("highest")
-        gen_launches, test_lr = phase_generation(work, dev, raw, ckpt)
-        pred = phase_serving(work, dev, test_lr)
-        times, bwd_times = phase_times(dev, pred)
-        train_t = phase_train_times(trainer)
+        gen_launches, test_lr, sr_dir = phase("generation", phase_generation, work, dev, raw, ckpt)
+        stsr, stsr_ckpt, stsr_sps = phase("sr", phase_sr_training, work, sr_dir)
+        parity = phase("sr_parity", phase_sr_parity, work, sr_dir)
+        torch.set_float32_matmul_precision("highest")
+        seqs_launches, seqs_dir = phase("generation_seqs", phase_generation_seqs, work, dev, raw, ckpt)
+        mtsr, mtsr_ckpt, mtsr_sps = phase("seqs", phase_mtsr_training, work, seqs_dir, stsr_ckpt)
+        served = phase("serving_trained", phase_serving_trained, dev, stsr_ckpt, sr_dir, mtsr_ckpt,
+                       seqs_dir)
+        pred = phase("serving", phase_serving, work, dev, test_lr)
+        times, bwd_times = phase("times", phase_times, dev, pred)
+        train_t = phase("train_times", phase_train_times, trainer)
+        sr_t = phase("sr_times", phase_sr_times, [
+            ("STSR", stsr, os.path.join(sr_dir, "SRdataset_test.npz"), 1),
+            ("MTSR", mtsr, os.path.join(seqs_dir, "SRdataset_test_32.npz"), 7)])
+    log(f"[times] SR epochs: STSR {stsr_sps:.1f} samples/s, MTSR {mtsr_sps:.1f} samples/s; "
+        f"STSR step {sr_t['STSR']['step_ms']:.4f} ms (MFU {sr_t['STSR']['mfu'] * 100:.2f}%), "
+        f"MTSR step {sr_t['MTSR']['step_ms']:.4f} ms (MFU {sr_t['MTSR']['mfu'] * 100:.2f}%); "
+        f"card vs CPU loss rel {parity['loss_rel']:.3e}; trained serving {served}")
     smi = nvidia_smi_line()
-    log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
-    by_path = {"training": train_launches, "generation": gen_launches}
+    log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s: {phase.seconds}")
+    by_path = {"training": train_launches, "generation": gen_launches,
+               "generation_seqs": seqs_launches}
     main_t = times[MAIN_BATCH]
     record = {"kernels": [
         {

@@ -1,5 +1,6 @@
 """Default configs: plain dicts merged over a common block (the port's copy of
-``tactilesr_tpu/config/default.py``'s common and tPSFNet blocks).
+``tactilesr_tpu/config/default.py``: common, tPSFNet, tactileSR and
+tactileSeqs).
 
 The keys and values are the JAX package's, so one YAML file drives both.
 The port reads them so:
@@ -13,6 +14,10 @@ The port reads them so:
   version under autograd (``tasks/tpsf_task.py``);
 - ``physics_precision``: only ``highest`` (f32 FMA) is ported;
 - ``scan_epochs`` and ``remat`` must stay False (not ported);
+- ``model_arch``: only ``TactileSR`` is ported; ``TactileSRCNN`` raises
+  ``NotImplementedError`` (``tasks/sr_task.py``);
+- ``load_checkpoint_dir`` (tactileSeqs): a port ``.pth`` bundle of the
+  trained STSR, whose trunk warm-starts the MTSR;
 - ``data_parallel``: the port trains on one device, so only ``auto`` and
   the off values are accepted (``parallel/dist.py::check_single_device``).
 """
@@ -21,7 +26,7 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["common_config", "tPSFNet_config", "root_path"]
+__all__ = ["common_config", "tPSFNet_config", "tactileSR_config", "tactileSeqs_config", "root_path"]
 
 root_path = os.environ.get("TACTILESR_ROOT", os.getcwd())
 
@@ -67,4 +72,62 @@ tPSFNet_config = {
     "inference_seqs_length": 64,
     "test_dataset_dir_1": os.path.join(root_path, "data/rotateDataset/I.npy"),
     "test_dataset_dir_2": os.path.join(root_path, "data/rotateDataset/P.npy"),
+}
+
+# --------------------------------------------------------------- tactileSR
+tactileSR_config = {
+    **common_config,
+    "train_batch_size": 32,
+    "test_batch_size": 8,
+    "lr": 1e-3,
+    "weight_decay": 1e-2,
+    "lr_scheduler_step_size": 2,
+    "lr_scheduler_gamma": 0.8,
+    "checkpoint_period": 1,
+    "HR_scale_num": 10,
+    # PSNR max value; the code passes this value itself (not /HR_scale_num)
+    "sensorMaxVaule_factor": 250,
+    "epochs": 51,
+    "warmup_t": 2000,
+    # the reference entry never forwards warmup_by_epoch (so it is False in
+    # effect); the key stays for schema parity
+    "warmup_by_epoch": True,
+    "warmup_mode": "auto",
+    "warmup_init_lr": 1e-5,
+    "warmup_factor": 1e-4,
+    "scale_factor": 10,
+    "seqsCnt": 1,
+    "axisCnt": 3,
+    "patternFeatureExtraLayerCnt": 6,
+    "forceFeatureExtraLayerCnt": 1,
+    "model_arch": "TactileSR",
+    # "reference": Kaiming fan_out on the final conv->ReLU head;
+    # "non_negative": |Kaiming| / sqrt(fan_in) on that one kernel
+    "head_init": "reference",
+    # detector of the born-dead head (loss pinned at mean(HR^2), ~zero
+    # output variance); "warn" logs once, "reinit" re-draws the head kernel
+    "dead_head_check": True,
+    "dead_head_action": "warn",
+    "inference_test": True,
+    "save_dir": os.path.join(root_path, "pth/tactileSR_single"),
+    "train_dataset_dir": os.path.join(root_path, "data/SRdataset/SRdataset_train.npz"),
+    "test_dataset_dir": os.path.join(root_path, "data/SRdataset/SRdataset_test.npz"),
+    "val_dataset_dir": os.path.join(root_path, "data/SRdataset/SRdataset_validation.npz"),
+}
+
+# ------------------------------------------------------------- tactileSeqs
+tactileSeqs_config = {
+    **tactileSR_config,
+    "seqsCnt": 7,  # seqs length <= 7
+    "axisCnt": 3,
+    "lr": 1e-4,
+    "weight_decay": 1e-2,
+    "epochs": 51,
+    "load_checkpoint_dir": os.path.join(root_path, "pth/tactileSR_single/checkpoints/epoch_50.pth"),
+    # opt-in LR warmup for the seqs stage (the reference entry wires none)
+    "seqs_use_warmup": False,
+    "save_dir": os.path.join(root_path, "pth/tactileSeqs_seq_7"),
+    "train_dataset_dir": os.path.join(root_path, "data/SeqsDataset/SRdataset_train_32.npz"),
+    "test_dataset_dir": os.path.join(root_path, "data/SeqsDataset/SRdataset_test_32.npz"),
+    "val_dataset_dir": os.path.join(root_path, "data/SeqsDataset/SRdataset_validation_32.npz"),
 }

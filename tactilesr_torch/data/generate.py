@@ -1,17 +1,28 @@
 """Offline SR-dataset generation: a trained tPSFNet manufactures the HR
 labels that the SR networks train on.
 
-``generate_single_srdataset`` follows the reference generator
-(data/SRdataset/depth2tactile.py:62-160): fixed train/val/test tap-index
-splits over the 9x9 grid, one record per sample ``{LR (3,4,4) already
-/scale_num, depth (1,100,100), HR (1,100,100), LR_degrade (1,4,4),
-alphaBeta (3,)}``.  Each split runs as batched tPSF physics on the device
-(the CUDA kernel on a GPU), in fixed-size zero-padded chunks, and is saved
-as a stacked ``.npz`` (plus the reference's object ``.npy`` on request).
+- ``generate_single_srdataset`` follows the reference generator
+  (data/SRdataset/depth2tactile.py:62-160): fixed train/val/test tap-index
+  splits over the 9x9 grid, one record per sample ``{LR (3,4,4) already
+  /scale_num, depth (1,100,100), HR (1,100,100), LR_degrade (1,4,4),
+  alphaBeta (3,)}``.
+- ``generate_seqs_srdataset`` follows the reference's
+  data/SeqsDataset/seqsDepth2Tactile.py:20-107: for each contact,
+  translation and press depth, 7 rotation frames (0-30 degrees) make a
+  (21,4,4) LR in deepest-first order, the 30-degree frame sweeping the
+  press sequence and rotations 0-25 degrees taking the deepest press; the
+  HR comes from the 30-degree frame; splits go by translation index (0
+  test, 1 validation, the rest train).
+
+Each split runs as batched tPSF physics on the device (the CUDA kernel on
+a GPU), in fixed-size zero-padded chunks, and is saved as a stacked
+``.npz`` (plus the reference's object ``.npy`` on request).
 
     python -m tactilesr_torch.data.generate synthetic --out-dir raw/
     python -m tactilesr_torch.data.generate single --tpsf-checkpoint tpsf.pth \\
         --raw-dir raw/ --out-dir sr/ --sample-cnt 4
+    python -m tactilesr_torch.data.generate seqs --tpsf-checkpoint tpsf.pth \\
+        --raw-dir raw/ --out-dir seqs/ --sample-cnt 4 --n-contacts 3
 """
 
 from __future__ import annotations
@@ -28,7 +39,8 @@ from ..runtime.checkpoint import load_checkpoint_file
 from ..runtime.device import resolve_device
 from .datasets import TPSFNetDataset
 
-__all__ = ["tpsf_apply_batched", "generate_single_srdataset", "SINGLE_SPLITS", "load_tpsf"]
+__all__ = ["tpsf_apply_batched", "generate_single_srdataset", "generate_seqs_srdataset",
+           "SINGLE_SPLITS", "load_tpsf"]
 
 logger = logging.getLogger("tactilesr_torch")
 
@@ -132,6 +144,61 @@ def generate_single_srdataset(
     return paths
 
 
+def generate_seqs_srdataset(
+    tpsf_checkpoint: str,
+    raw_dataset_dir: str,
+    out_dir: str,
+    sample_cnt: int = 16,
+    scale_num: float = 100.0,
+    gama: float = 1.4,
+    n_contacts: int = 18,
+    n_translations: int = 9,
+    legacy_npy: bool = False,
+    suffix: str = "_32",
+    physics_precision: str = "highest",
+    batch: int = 256,
+    device="cuda",
+) -> Dict[str, str]:
+    """Multi-frame SeqsDataset: {LR (21,4,4), depth (1,100,100), HR} per split."""
+    model = load_tpsf(tpsf_checkpoint, gama, physics_precision, device)
+    ds = TPSFNetDataset(raw_dataset_dir, sample_cnt=sample_cnt,
+                        is_sample_idx=list(range(0, n_translations * 9)), is_aug_data=False)
+    lr_all, depth_all = ds.stacked()
+    taps_per_contact = sample_cnt * n_translations * 9
+
+    def flat_index(contact, trans, rot, seq):
+        return seq + sample_cnt * (rot + trans * 9) + taps_per_contact * contact
+
+    collected = {"train": [], "validation": [], "test": []}
+    split_of_trans = {0: "test", 1: "validation"}
+    n_avail = lr_all.shape[0]
+    for contact in range(n_contacts):
+        for trans in range(n_translations):
+            for seq in range(sample_cnt):
+                # rotations 0, 5, ..., 25 degrees take the deepest press frame;
+                # the 30-degree frame sweeps the press sequence
+                idxs = [flat_index(contact, trans, rot, sample_cnt - 1) for rot in range(6)]
+                idx30 = flat_index(contact, trans, 6, seq)
+                if max(idxs + [idx30]) >= n_avail:
+                    continue
+                collected[split_of_trans.get(trans, "train")].append((idx30, idxs[::-1]))
+
+    paths: Dict[str, str] = {}
+    for split, rows in collected.items():
+        if not rows:
+            logger.warning("seqs split '%s' is empty", split)
+            continue
+        idx30 = np.asarray([r[0] for r in rows])
+        frames = np.asarray([[r[0]] + r[1] for r in rows])  # (N, 7), deepest-first
+        lr_cat = lr_all[frames].reshape(len(rows), -1, 4, 4).astype(np.float32) / scale_num
+        phys = tpsf_apply_batched(model, lr_all[idx30], depth_all[idx30], scale_num, batch)
+        arrays = {"LR": lr_cat, "depth": phys["depth"], "HR": phys["HR"]}
+        name = f"SRdataset_{split}{suffix}"
+        _save_split(out_dir, name, arrays, legacy_npy)
+        paths[split] = os.path.join(out_dir, name + ".npz")
+    return paths
+
+
 def _cli(argv=None):
     import argparse
 
@@ -140,7 +207,7 @@ def _cli(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     p = argparse.ArgumentParser(
         prog="python -m tactilesr_torch.data.generate",
-        description="Dataset generation: synthetic raw blobs, single-frame SRdataset",
+        description="Dataset generation: synthetic raw blobs, SRdataset, SeqsDataset",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -151,18 +218,22 @@ def _cli(argv=None):
     ps.add_argument("--seqs", type=int, default=64)
     ps.add_argument("--seed", type=int, default=0)
 
-    pg = sub.add_parser("single", help="generate the single-frame SR dataset")
-    pg.add_argument("--tpsf-checkpoint", required=True, help="port .pth bundle")
-    pg.add_argument("--raw-dir", required=True)
-    pg.add_argument("--out-dir", required=True)
-    pg.add_argument("--sample-cnt", type=int, default=16)
-    pg.add_argument("--scale-num", type=float, default=100.0)
-    pg.add_argument("--gama", type=float, default=1.4)
-    pg.add_argument("--legacy-npy", action="store_true")
-    pg.add_argument("--physics-precision", default="highest",
-                    help="physics matmul precision; only 'highest' (f32) is supported")
-    pg.add_argument("--batch", type=int, default=256, help="physics batch per launch")
-    pg.add_argument("--device", default="cuda")
+    for name in ("single", "seqs"):
+        pg = sub.add_parser(name, help=f"generate the {name}-frame SR dataset")
+        pg.add_argument("--tpsf-checkpoint", required=True, help="port .pth bundle")
+        pg.add_argument("--raw-dir", required=True)
+        pg.add_argument("--out-dir", required=True)
+        pg.add_argument("--sample-cnt", type=int, default=16)
+        pg.add_argument("--scale-num", type=float, default=100.0)
+        pg.add_argument("--gama", type=float, default=1.4)
+        pg.add_argument("--legacy-npy", action="store_true")
+        pg.add_argument("--physics-precision", default="highest",
+                        help="physics matmul precision; only 'highest' (f32) is supported")
+        pg.add_argument("--batch", type=int, default=256, help="physics batch per launch")
+        pg.add_argument("--device", default="cuda")
+        if name == "seqs":
+            pg.add_argument("--n-contacts", type=int, default=18)
+            pg.add_argument("--n-translations", type=int, default=9)
 
     args = p.parse_args(argv)
     if args.cmd == "synthetic":
@@ -170,14 +241,17 @@ def _cli(argv=None):
                                         taps_per_blob=args.taps_per_blob, seed=args.seed,
                                         seqs=args.seqs)
         print("\n".join(paths))
+        return
+    common = dict(sample_cnt=args.sample_cnt, scale_num=args.scale_num, gama=args.gama,
+                  legacy_npy=args.legacy_npy, physics_precision=args.physics_precision,
+                  batch=args.batch, device=args.device)
+    if args.cmd == "single":
+        paths = generate_single_srdataset(args.tpsf_checkpoint, args.raw_dir, args.out_dir, **common)
     else:
-        paths = generate_single_srdataset(
-            args.tpsf_checkpoint, args.raw_dir, args.out_dir,
-            sample_cnt=args.sample_cnt, scale_num=args.scale_num, gama=args.gama,
-            legacy_npy=args.legacy_npy, physics_precision=args.physics_precision,
-            batch=args.batch, device=args.device,
-        )
-        print("\n".join(f"{k}: {v}" for k, v in paths.items()))
+        paths = generate_seqs_srdataset(args.tpsf_checkpoint, args.raw_dir, args.out_dir,
+                                        n_contacts=args.n_contacts,
+                                        n_translations=args.n_translations, **common)
+    print("\n".join(f"{k}: {v}" for k, v in paths.items()))
 
 
 if __name__ == "__main__":

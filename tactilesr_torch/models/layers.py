@@ -20,7 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["Conv", "BatchNorm", "kaiming_normal_fan_out_", "init_weights_"]
+__all__ = ["Conv", "BatchNorm", "kaiming_normal_fan_out_", "non_negative_kaiming_fan_out_",
+           "init_weights_"]
 
 
 class Conv(nn.Conv2d):
@@ -47,6 +48,22 @@ def kaiming_normal_fan_out_(w: torch.Tensor, generator: torch.Generator) -> torc
     fan_out = w.shape[0] * math.prod(w.shape[2:])
     with torch.no_grad():
         return w.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+
+
+def non_negative_kaiming_fan_out_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """|Kaiming fan_out| / sqrt(fan_in), fan_in = in_channels * kh * kw.
+
+    The SR head is conv (no bias) -> ReLU on ReLU features: an all-positive
+    kernel can never be born dead, and the 1/sqrt(fan_in) keeps its output
+    at the scale of a sign-random draw (the JAX package's
+    ``non_negative_kaiming_fan_out``)."""
+    return fold_non_negative_(kaiming_normal_fan_out_(w, generator))
+
+
+def fold_non_negative_(w: torch.Tensor) -> torch.Tensor:
+    """In place: a Kaiming draw ``w`` -> |w| / sqrt(fan_in)."""
+    with torch.no_grad():
+        return w.abs_().div_(math.sqrt(math.prod(w.shape[1:]) or 1))
 
 
 def _bias_uniform_(b: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:

@@ -14,6 +14,14 @@ loads with ``strict=True``: ``inputLayer_pattern_list.{s}.{1,2,4,5}``,
 ``input_layer_force.1``, ``forceFeatureExtra_layer.{i}.conv{1,2}``,
 ``output_layer.{0,2}``.  Parameters stay f32; ``dtype`` is the activation
 dtype (BN in f32), as in the JAX module.
+
+``head_init`` picks the final head kernel's init (``output_layer.2``, a
+bias-free conv before the last ReLU): ``"reference"`` keeps the Kaiming
+fan_out draw, ``"non_negative"`` folds that same draw to |w| / sqrt(fan_in)
+so the head cannot be born dead.  The parameter tree is the same either
+way.  In ``train()`` mode the BatchNorms normalise by the batch statistics
+and update their running statistics (torch's momentum 0.1 and unbiased
+running variance, as the JAX ``BatchNorm``).
 """
 
 from __future__ import annotations
@@ -23,11 +31,12 @@ import torch.nn as nn
 
 from ..ops.resize import resize_bilinear_nchw, upsample_bilinear
 from .blocks import MSRB, ResBlock
-from .layers import BatchNorm, Conv, init_weights_
+from .layers import BatchNorm, Conv, fold_non_negative_, init_weights_
 
-__all__ = ["TactileSR", "TAXEL_CNT"]
+__all__ = ["TactileSR", "TAXEL_CNT", "HEAD_INITS"]
 
 TAXEL_CNT = 4  # the Xela sensor is a 4x4 taxel grid
+HEAD_INITS = ("reference", "non_negative")
 
 
 class Upsample(nn.Module):
@@ -51,8 +60,11 @@ class TactileSR(nn.Module):
         force_feature_extra_layer_cnt: int = 1,
         dtype: torch.dtype = torch.float32,
         generator: torch.Generator | None = None,
+        head_init: str = "reference",
     ):
         super().__init__()
+        if head_init not in HEAD_INITS:
+            raise ValueError(f"head_init must be one of {sorted(HEAD_INITS)}, got {head_init!r}")
         self.scale_factor = scale_factor
         self.seqs_cnt = seqs_cnt
         self.axis_cnt = axis_cnt
@@ -85,6 +97,8 @@ class TactileSR(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_weights_(self, generator)
+        if head_init == "non_negative":  # the head is drawn last: no other draw changes
+            fold_non_negative_(self.output_layer[2].weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[1] != self.seqs_cnt * self.axis_cnt:

@@ -11,9 +11,19 @@ import sys
 import numpy as np
 import torch
 
-__all__ = ["collect_env", "set_random_seed", "apply_matmul_precision"]
+__all__ = ["collect_env", "set_random_seed", "apply_matmul_precision", "compute_dtype"]
 
 _MATMUL_PRECISIONS = {"highest": "highest", "high": "high", "default": "high"}
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def compute_dtype(config) -> torch.dtype:
+    """The ``compute_dtype`` config key as a torch dtype (activations and
+    products; parameters stay f32)."""
+    name = config.get("compute_dtype", "float32")
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={name!r}: expected one of {sorted(_COMPUTE_DTYPES)}")
+    return _COMPUTE_DTYPES[name]
 
 
 def apply_matmul_precision(config) -> None:

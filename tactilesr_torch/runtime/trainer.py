@@ -20,6 +20,11 @@ The design keeps the JAX trainer's:
 
 Subclasses implement ``train_cal_loss(batch) -> (loss, loss_dict)``; the
 batch dict holds the gathered rows plus ``mask`` (0 on padded rows).
+
+Every forward outside the train step (evals, hooks) goes through
+``model_apply``: eval mode under ``no_grad``, the model's mode restored
+after, so no such forward updates BatchNorm running statistics or leaves
+the model in eval mode for the next step.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from .hooks import CheckpointHook, HookBase, LoggerHook, LRUpdateHook
 from .logger import setup_logger
 from .misc import collect_env
 
-__all__ = ["Trainer", "masked_mse"]
+__all__ = ["Trainer", "eval_forward", "masked_mse"]
 
 logger = logging.getLogger("tactilesr_torch")
 
@@ -58,6 +63,18 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> 
     per_elem = math.prod(pred.shape[1:])
     se = ((pred - target) ** 2 * m).sum()
     return se / torch.clamp(mask.sum() * per_elem, min=1.0)
+
+
+def eval_forward(model: torch.nn.Module, *args, **kwargs):
+    """``model(*args, **kwargs)`` in eval mode under ``no_grad``; the model
+    goes back to the mode it was in."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            return model(*args, **kwargs)
+    finally:
+        model.train(was_training)
 
 
 class Trainer:
@@ -159,6 +176,10 @@ class Trainer:
 
     def log(self, *args, **kwargs) -> None:
         self.metric_storage.update(*args, **kwargs)
+
+    def model_apply(self, *args, **kwargs):
+        """Eval-mode forward of the current model (see ``eval_forward``)."""
+        return eval_forward(self.model, *args, **kwargs)
 
     # ------------------------------------------------------------ internals
     def _default_setup(self) -> None:

@@ -34,10 +34,10 @@ from ..runtime.checkpoint import load_checkpoint_file
 from ..runtime.device import resolve_device
 from ..runtime.hooks import EvalHook, HookBase
 from ..runtime.logger import setup_logger
-from ..runtime.misc import apply_matmul_precision, set_random_seed
+from ..runtime.misc import apply_matmul_precision, compute_dtype, set_random_seed
 from ..runtime.optim import adam_l2
 from ..runtime.schedule import LRWarmupSchedule, StepLR
-from ..runtime.trainer import Trainer, masked_mse
+from ..runtime.trainer import Trainer, eval_forward, masked_mse
 
 __all__ = [
     "TPSFTrainer",
@@ -49,8 +49,6 @@ __all__ = [
 ]
 
 logger = logging.getLogger("tactilesr_torch")
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def resolve_use_kernel(config):
@@ -74,15 +72,12 @@ def build_model(config) -> TPSFNet:
     prec = config.get("physics_precision") or "highest"
     if prec.lower() != "highest":
         raise ValueError(f"physics_precision={prec!r}: only 'highest' (f32) is ported")
-    name = config.get("compute_dtype", "float32")
-    if name not in _DTYPES:
-        raise ValueError(f"compute_dtype={name!r}: expected one of {sorted(_DTYPES)}")
     return TPSFNet(
         gama=config["gama"],
         perception_scale=config["perception_scale"],
         use_kernel=resolve_use_kernel(config),
         generator=torch.Generator().manual_seed(int(config["random_seed"])),
-        dtype=_DTYPES[name],
+        dtype=compute_dtype(config),
     )
 
 
@@ -113,19 +108,12 @@ def build_eval_fn(trainer: TPSFTrainer, test_arrays: Dict[str, np.ndarray]):
     depth_f = torch.from_numpy(np.ascontiguousarray(test_arrays["depth"][firsts])).to(trainer.device)
 
     def eval_func() -> Dict[str, float]:
-        model = trainer.model
-        was_training = model.training
-        model.eval()
-        try:
-            with torch.no_grad():
-                lr1 = lr_f.float() / scale_num
-                _hr, deg, _psf, _ab = model(lr1, depth_f[:, None], return_psf=False)
-                deg0, lr_z = deg[:, 0], lr1[:, 2]
-                mse = ((deg0 - lr_z) ** 2).mean(dim=(-2, -1))
-                mse_ave, ssim_ave = torch.stack(
-                    [mse.mean(), batched_ssim(deg0, lr_z).mean()]).cpu().tolist()
-        finally:
-            model.train(was_training)
+        lr1 = lr_f.float() / scale_num
+        _hr, deg, _psf, _ab = trainer.model_apply(lr1, depth_f[:, None], return_psf=False)
+        deg0, lr_z = deg[:, 0], lr1[:, 2]
+        mse = ((deg0 - lr_z) ** 2).mean(dim=(-2, -1))
+        mse_ave, ssim_ave = torch.stack(
+            [mse.mean(), batched_ssim(deg0, lr_z).mean()]).cpu().tolist()
         logger.info("mse_loss_ave:%.6g, ssim_ave:%.6g", mse_ave, ssim_ave)
         return {"Eval Metric": mse_ave, "eval_ssim": ssim_ave}
 
@@ -147,13 +135,7 @@ class InferenceHookTPSF(HookBase):
         dev = next(model.parameters()).device
         lr = torch.from_numpy(np.ascontiguousarray(arrays["LR"])).to(dev).float() / self._scale
         depth = torch.from_numpy(np.ascontiguousarray(arrays["depth"])).to(dev)[:, None]
-        was_training = model.training
-        model.eval()
-        try:
-            with torch.no_grad():
-                _hr, _deg, _psf, ab = model(lr, depth, return_psf=False)
-        finally:
-            model.train(was_training)
+        _hr, _deg, _psf, ab = eval_forward(model, lr, depth, return_psf=False)
         ab = ab[:, 0].cpu().numpy()
         force = lr[:, 2].sum(dim=(1, 2)).cpu().numpy()
         return force, ab[:, 0], ab[:, 1]

@@ -1,6 +1,7 @@
-"""The port stands alone: every tactilesr_torch module, chip_smoke.py's own
-imports and the stage-1 training entry load and run in a process where jax,
-flax, optax and tactilesr_tpu cannot be imported."""
+"""The port stands alone: every tactilesr_torch module (the SR recipe and
+its two entries among them), chip_smoke.py's own imports and the stage-1
+training entry load and run in a process where jax, flax, optax and
+tactilesr_tpu cannot be imported."""
 
 import os
 import pkgutil
@@ -38,7 +39,7 @@ def _run(code):
 
 def test_port_imports_nothing_of_jax():
     mods = _modules()
-    for m in ("ops.cuda", "serving", "tasks.tpsf_task"):
+    for m in ("ops.cuda", "serving", "tasks.tpsf_task", "tasks.sr_task", "tasks.sr_seqs_task"):
         assert f"tactilesr_torch.{m}" in mods, m
     code = (
         "import importlib\n"
