@@ -26,6 +26,14 @@ Phases (any failure exits non-zero and prints no result line):
                  alpha/beta curves must be finite; then the wrapper's
                  gradients (kernel forward, kernel backward) vs autograd
                  through the plain physics at B=256 (rtol 1e-3, atol 1e-6)
+   training_captured -- the same recipe with ``--scan_epochs true``: each
+                 step after the warm-up a replay of one CUDA graph that holds
+                 both physics kernels; the backward kernel must count one
+                 launch per step (58) and each forward wrapper at least one;
+                 losses against an eager run with capturable Adam at rtol
+                 1e-4 (one arithmetic), and against the eager run at rtol
+                 4e-3 (its host-side Adam rounds otherwise: 1.36e-3
+                 measured)
 4. generation -- ``generate single --sample-cnt 32 --batch 256`` from the
                  checkpoint that training wrote (2,688 train, 384 validation
                  and 384 test samples); the kernel must launch 11 + 2 + 2
@@ -38,7 +46,24 @@ Phases (any failure exits non-zero and prints no result line):
                  and BN running statistic moved, every num_batches_tracked
                  equal to the step count; then 2 SRTrainer steps of the
                  full-width f32 STSR at batch 8 on the card and on the CPU
-                 (TF32 off), held against each other
+                 (``matmul_precision: highest`` through the recipes'
+                 ``apply_matmul_precision``), held against each other
+   sr_captured -- 5 f32 steps of that STSR at batch 8, captured (the
+                 recipes' 3 eager warm-up steps, the capture, 2 replays)
+                 against eager with capturable Adam (losses rtol 1e-4,
+                 state by ``_state_deviation``) and against the eager loop
+                 (losses rtol 1e-4);
+                 then the STSR recipe with ``--scan_epochs true`` for 2
+                 epochs, with the sr phase's checks
+   remat      -- 4 f32 steps with ``remat`` against without, eager and
+                 captured (3 warm-up steps, then a replay): BN statistics and
+                 counters equal, losses rtol 1e-5
+   cnn        -- TactileSRCNN through the STSR entry (``--model_arch
+                 TactileSRCNN --scan_epochs true``, full width, bf16) for one
+                 epoch, then served by ``SRPredictor(model_arch=...)`` against
+                 its own f32 eval forward
+   profiler   -- ``ProfilerHook`` over 3 iterations of an eager STSR run: the
+                 trace names the CUDA kernels
 6. seqs       -- ``generate seqs --sample-cnt 32 --n-contacts 3
                  --n-translations 9`` (864 rows) through the kernel, its test
                  split against the plain physics; one epoch of the full-width
@@ -58,7 +83,10 @@ Phases (any failure exits non-zero and prints no result line):
                  ops); SRPredictor frames/s at bucket 1024; the STSR and MTSR
                  train steps at batch 32 (CUDA events), their device ops,
                  busy time and largest ops (torch.profiler) and model FLOPs
-                 utilisation against the bf16 dense peak, and the eval call
+                 utilisation against the bf16 dense peak, and the eval call;
+                 then (captured_times) the captured STSR, stage-1 and
+                 TactileSRCNN steps (replays, CUDA events) beside the eager
+                 ones: ms, device ops, host launch calls, busy share, MFU
 
 Each phase prints its seconds.  The second-to-last line is the per-kernel JSON record, the line before it
 the card's name and power limit, and the last line
@@ -82,15 +110,17 @@ from tactilesr_torch.config import tactileSeqs_config, tactileSR_config, tPSFNet
 from tactilesr_torch.data import generate  # noqa: E402
 from tactilesr_torch.data.datasets import SingleTapSeqsDataset  # noqa: E402
 from tactilesr_torch.models.inference import fold_inference_params, tactile_sr_infer  # noqa: E402
-from tactilesr_torch.models.tactile_sr import TactileSR  # noqa: E402
+from tactilesr_torch.models.tactile_sr import TactileSR, TactileSRCNN  # noqa: E402
 from tactilesr_torch.models.tpsf_net import TPSFNet  # noqa: E402
 from tactilesr_torch.ops import cuda as tcuda  # noqa: E402
 from tactilesr_torch.ops.psf import f32_matmul, physics_plain, physics_vjp_plain  # noqa: E402
 from tactilesr_torch.runtime.checkpoint import load_checkpoint_file, save_checkpoint_file  # noqa: E402
-from tactilesr_torch.runtime.hooks import HookBase  # noqa: E402
+from tactilesr_torch.runtime.hooks import HookBase, ProfilerHook  # noqa: E402
+from tactilesr_torch.runtime.misc import apply_matmul_precision  # noqa: E402
 from tactilesr_torch.serving import SRPredictor  # noqa: E402
 from tactilesr_torch.runtime.optim import adam_l2  # noqa: E402
 from tactilesr_torch.runtime.schedule import LRWarmupSchedule, StepLR  # noqa: E402
+from tactilesr_torch.runtime.trainer import SCAN_WARMUP_STEPS  # noqa: E402
 from tactilesr_torch.tasks import sr_seqs_task, sr_task, tpsf_task  # noqa: E402
 
 HR_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -483,6 +513,15 @@ def sr_flops_per_frame(scale=10, seqs=1, pattern_layers=6, force_layers=1, hw=No
     return sum(parts.values()), parts
 
 
+class CapturableAdam(HookBase):
+    """Makes an eager run's Adam capturable before it trains, so that it
+    does the captured step's arithmetic (the eager loop's own Adam is
+    host-side)."""
+
+    def before_train(self):
+        self.trainer.optimizer.make_capturable()
+
+
 class StartState(HookBase):
     """The model's state when training starts; with ``trunk`` (an STSR
     state_dict) it also holds the warm-started trunk against it, bit for
@@ -599,48 +638,53 @@ def _state_deviation(got, want, lr, steps, stats_atol):
     return dev
 
 
+def _sr_trainer(cfg, model, arrays, work_dir, device, max_epochs, epoch_len, **kw):
+    """An SRTrainer at the recipe's optimizer and schedule (no warmup) over
+    ``arrays`` at the config's batch."""
+    return sr_task.SRTrainer(
+        config=cfg, model=model,
+        optimizer=adam_l2(model.parameters(), weight_decay=cfg["weight_decay"]),
+        lr_schedule=LRWarmupSchedule(StepLR(cfg["lr"], cfg["lr_scheduler_step_size"],
+                                            cfg["lr_scheduler_gamma"]),
+                                     by_epoch=True, epoch_len=epoch_len),
+        train_arrays=arrays, batch_size=cfg["train_batch_size"], max_epochs=max_epochs,
+        work_dir=work_dir, seed=0, device=device, **kw)
+
+
 def phase_sr_parity(work, sr_dir, devices=("cuda", "cpu")):
     """2 SRTrainer steps of the full-width f32 STSR at batch 8 from one
     seeded init on the same 8 generated samples, on the card and on the CPU
-    (TF32 off for convs and matmuls): losses at rtol 1e-4; after step 1 the
+    (``matmul_precision: highest`` through ``apply_matmul_precision``, which
+    turns TF32 off for convolutions and matmuls): losses at rtol 1e-4; after step 1 the
     BN running statistics at atol 1e-5, after step 2 at 5e-4 (they then
     read weights that parted as ``_state_deviation`` says); parameters per
     element (``_state_deviation``)."""
-    cfg = dict(tactileSR_config, compute_dtype="float32", warmup_t=0, train_batch_size=SR_PARITY_BATCH)
+    cfg = dict(tactileSR_config, compute_dtype="float32", warmup_t=0, train_batch_size=SR_PARITY_BATCH,
+               matmul_precision="highest")
     with np.load(os.path.join(sr_dir, "SRdataset_train.npz")) as z:
         arrays = {"LR": z["LR"][:SR_PARITY_BATCH], "HR": z["HR"][:SR_PARITY_BATCH]}
     init = sr_task.build_model(cfg).state_dict()
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    apply_matmul_precision(cfg)  # the recipe's "highest": f32 convolutions and matmuls
+    check(not torch.backends.cudnn.allow_tf32, "matmul_precision highest left cuDNN in TF32")
     runs = {}
-    try:
-        for device in devices:
-            model = sr_task.build_model(cfg)
-            model.load_state_dict(init)
-            snaps = []
+    for device in devices:
+        model = sr_task.build_model(cfg)
+        model.load_state_dict(init)
+        snaps = []
 
-            class _Snap(HookBase):
-                def after_iter(self):
-                    snaps.append({k: v.detach().cpu().clone()
-                                  for k, v in self.trainer.model.state_dict().items()})
+        class _Snap(HookBase):
+            def after_iter(self):
+                snaps.append({k: v.detach().cpu().clone()
+                              for k, v in self.trainer.model.state_dict().items()})
 
-            t0 = time.perf_counter()
-            t = sr_task.SRTrainer(
-                config=cfg, model=model,
-                optimizer=adam_l2(model.parameters(), weight_decay=cfg["weight_decay"]),
-                lr_schedule=LRWarmupSchedule(StepLR(cfg["lr"], cfg["lr_scheduler_step_size"],
-                                                    cfg["lr_scheduler_gamma"]),
-                                             by_epoch=True, epoch_len=1),
-                train_arrays=arrays, batch_size=SR_PARITY_BATCH, max_epochs=SR_PARITY_STEPS,
-                work_dir=os.path.join(work, f"sr_parity_{device}"), seed=0, device=device)
-            t.register_hooks([_Snap()])
-            t.train(auto_resume=False)
-            runs[device] = (t.metric_storage["total_loss"].state_dict()["values"], snaps)
-            log(f"[sr] parity: {SR_PARITY_STEPS} f32 steps at B={SR_PARITY_BATCH} on {device} in "
-                f"{time.perf_counter() - t0:.2f} s")
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        t0 = time.perf_counter()
+        t = _sr_trainer(cfg, model, arrays, os.path.join(work, f"sr_parity_{device}"), device,
+                        max_epochs=SR_PARITY_STEPS, epoch_len=1)
+        t.register_hooks([_Snap()])
+        t.train(auto_resume=False)
+        runs[device] = (t.metric_storage["total_loss"].state_dict()["values"], snaps)
+        log(f"[sr] parity: {SR_PARITY_STEPS} f32 steps at B={SR_PARITY_BATCH} on {device} in "
+            f"{time.perf_counter() - t0:.2f} s")
     (loss_g, snap_g), (loss_c, snap_c) = (runs[d] for d in devices)
     np.testing.assert_allclose(loss_g, loss_c, rtol=1e-4)
     lr = cfg["lr"]
@@ -652,6 +696,279 @@ def phase_sr_parity(work, sr_dir, devices=("cuda", "cpu")):
         f"after step {SR_PARITY_STEPS} {last} (stats atol 1e-5 then 5e-4; parameters within "
         "2 lr steps, at most 1% of their elements beyond 1e-5) ok")
     return dict(loss_rel=loss_err, step1=first, last=last)
+
+
+# captured-vs-eager f32 runs: the scan path's warm-up steps, the capture,
+# then replays (2 for the parity check, 1 for remat)
+SCAN_PARITY_STEPS = SCAN_WARMUP_STEPS + 2
+REMAT_STEPS = SCAN_WARMUP_STEPS + 1
+# captured vs eager bf16 stage-1 losses over 58 steps: the captured step runs
+# capturable Adam (bias corrections on the device in f32), the eager loop the
+# host-side form (in double), and the losses part by that rounding: 1.36e-3
+# measured on an H100 80GB HBM3 at 700 W; the limit is about 3x that
+STAGE1_CAPTURED_RTOL = 4e-3
+CNN_EPOCHS = 1
+
+
+def _sr_argv(work_dir, sr_dir, epochs, *extra):
+    return ["--train_dataset_dir", os.path.join(sr_dir, "SRdataset_train.npz"),
+            "--test_dataset_dir", os.path.join(sr_dir, "SRdataset_test.npz"),
+            "--save_dir", work_dir, "--epochs", str(epochs), "--inference_test", "false", *extra]
+
+
+def _losses(t):
+    """The run's per-step losses its metric storage keeps (the last 20)
+    and their mean over every step."""
+    buf = t.metric_storage["total_loss"]
+    return buf.state_dict()["values"] + [buf.global_avg]
+
+
+def _max_rel(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def _f32_sr_runs(work, dev, sr_dir, steps, variants):
+    """``steps`` SRTrainer steps of the full-width f32 STSR at B=8 on the
+    first 8 x steps generated samples (one epoch), one run per entry of
+    ``variants`` (name -> trainer keywords, and ``hooks``), all from one
+    seeded init, with ``matmul_precision: highest`` and cuDNN's
+    deterministic algorithms.  A scan-mode run warms up as the recipes do
+    (``SCAN_WARMUP_STEPS`` eager steps), then captures and replays the rest.
+
+    Deterministic, because these runs are compared with each other: cuDNN's
+    default convolution backward sums in an order that varies from run to
+    run, and Adam turns that rounding, on elements whose true gradient lies
+    under it (the pre-BN conv biases), into steps of about lr that the BN
+    running means then carry."""
+    cfg = dict(tactileSR_config, compute_dtype="float32", warmup_t=0,
+               train_batch_size=SR_PARITY_BATCH, matmul_precision="highest")
+    n = SR_PARITY_BATCH * steps
+    with np.load(os.path.join(sr_dir, "SRdataset_train.npz")) as z:
+        arrays = {"LR": z["LR"][:n], "HR": z["HR"][:n]}
+    init = sr_task.build_model(cfg).state_dict()
+    apply_matmul_precision(cfg)
+    runs = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, kw in variants.items():
+            kw = dict(kw)
+            hooks = kw.pop("hooks", [])
+            model = sr_task.build_model(cfg)
+            model.load_state_dict(init)
+            t = _sr_trainer(cfg, model, arrays, os.path.join(work, f"f32_{name}"), dev,
+                            max_epochs=1, epoch_len=steps, **kw)
+            t.register_hooks(hooks)
+            t.train(auto_resume=False)
+            check(t.step == steps, f"{name}: {t.step} steps")
+            check(not kw.get("scan_epochs") or (t._graph is not None and steps > SCAN_WARMUP_STEPS),
+                  f"{name}: no graph was captured and replayed")
+            runs[name] = t
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    return cfg, runs
+
+
+def _cpu_state(t):
+    return {k: v.detach().cpu() for k, v in t.model.state_dict().items()}
+
+
+def phase_sr_captured(work, dev, sr_dir):
+    """(a) 5 f32 steps of the full-width STSR at B=8 from one init, cuDNN
+    deterministic, captured (the recipes' 3 eager warm-up steps, the
+    capture, two replays) against the eager loop with capturable Adam,
+    which does the captured step's arithmetic: losses at rtol 1e-4, the
+    state after step 5 by ``_state_deviation`` (BN statistics at atol
+    5e-4); and against the
+    eager loop as the recipes run it (host-side Adam): losses at rtol 1e-4.
+    (b) the STSR recipe through its entry with ``--scan_epochs true`` for 2
+    epochs (168 steps, bf16): ``_check_sr_run``'s checks."""
+    cfg, runs = _f32_sr_runs(work, dev, sr_dir, SCAN_PARITY_STEPS, {
+        "eager": {}, "eager_capturable": {"hooks": [CapturableAdam()]},
+        "captured": {"scan_epochs": True}})
+    eager, same, capt = runs["eager"], runs["eager_capturable"], runs["captured"]
+    np.testing.assert_allclose(_losses(capt), _losses(same), rtol=1e-4)
+    dev = _state_deviation(_cpu_state(capt), _cpu_state(same), cfg["lr"], SCAN_PARITY_STEPS,
+                           stats_atol=5e-4)
+    np.testing.assert_allclose(_losses(capt), _losses(eager), rtol=1e-4)
+    rel, rel_same = _max_rel(_losses(capt), _losses(eager)), _max_rel(_losses(capt), _losses(same))
+    log(f"[sr_captured] captured vs eager with capturable Adam, full-width f32 STSR, "
+        f"{SCAN_PARITY_STEPS} steps at B={SR_PARITY_BATCH}, cuDNN deterministic: losses {_losses(capt)} vs {_losses(same)} "
+        f"(max rel {rel_same:.3e}, rtol 1e-4); after step {SCAN_PARITY_STEPS} {dev} (stats atol 5e-4; "
+        "parameters within 2 lr steps, at most 1% of their elements beyond 1e-5); vs the eager loop "
+        f"(host-side Adam): losses {_losses(eager)} (max rel {rel:.3e}, rtol 1e-4) ok")
+
+    clock, start = EpochClock(), StartState()
+    t0 = time.perf_counter()
+    trainer = sr_task._cli(_sr_argv(os.path.join(work, "stsr_captured"), sr_dir, SR_EPOCHS,
+                                    "--scan_epochs", "true"), hooks=[clock, start])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(trainer.scan_epochs and trainer._graph is not None, "the STSR recipe captured no graph")
+    check(trainer.model.dtype == torch.bfloat16, "the STSR does not compute in bf16")
+    _check_sr_run("sr_captured", trainer, start.state, SR_EPOCHS * trainer.epoch_len)
+    sps = trainer.n_train / clock.seconds[-1]
+    log(f"[sr_captured] STSR recipe, --scan_epochs true: {SR_EPOCHS} epochs x {trainer.epoch_len} "
+        f"steps in {wall:.2f} s (entry wall clock); epoch seconds {clock.seconds}; the last: "
+        f"{sps:.1f} samples/s (host clock, card synced at both ends, eval and checkpoint included)")
+    return trainer, dict(loss_rel=rel, loss_rel_capturable=rel_same, state=dev,
+                         epoch_samples_per_s=sps)
+
+
+def phase_training_captured(work, raw, eager):
+    """Stage 1 through its entry with ``--scan_epochs true`` at the recipe's
+    defaults for 2 epochs (58 steps): the graph holds both physics kernels,
+    the backward kernel counts exactly one launch per step and each forward
+    wrapper at least one.  The losses (the last 20 steps' and the mean over
+    all 58) against those of an eager run with capturable Adam, which does
+    the captured step's arithmetic, at rtol 1e-4; and against the eager
+    run's (``eager``, the training phase) at ``STAGE1_CAPTURED_RTOL``."""
+    save_dir = os.path.join(work, "tpsf_captured")
+    argv = ["--dataset_dir", raw, "--save_dir", save_dir, "--epochs", str(TRAIN_EPOCHS),
+            "--inference_test", "false", "--scan_epochs", "true"]
+    clock = EpochClock()
+    tcuda.reset_launch_counts()
+    trainer = tpsf_task._cli(argv, hooks=[clock])
+    torch.cuda.synchronize()
+    launches = dict(tcuda.launch_counts)
+    steps = trainer.step
+    check(steps == TRAIN_EPOCHS * trainer.epoch_len, f"{steps} optimizer steps")
+    check(trainer._graph is not None and trainer._graph.per_replay.get("tpsf_physics_bwd") == 1,
+          f"the stage-1 graph records {trainer._graph and trainer._graph.per_replay} kernel launches")
+    check(launches["tpsf_physics_bwd"] == steps,
+          f"tpsf_physics_bwd launched {launches['tpsf_physics_bwd']} times in {steps} captured steps")
+    for name in ("tpsf_physics", "tpsf_physics_fused"):
+        check(launches[name] >= steps, f"{name} launched {launches[name]} times in {steps} steps")
+    got, want = _losses(trainer), _losses(eager)
+    check(len(trainer.metric_storage["total_loss"]) == len(eager.metric_storage["total_loss"]) == steps
+          and np.isfinite(got).all(), f"{len(trainer.metric_storage['total_loss'])} captured losses")
+    same = tpsf_task._cli(["--dataset_dir", raw, "--save_dir", os.path.join(work, "tpsf_capturable"),
+                           "--epochs", str(TRAIN_EPOCHS), "--inference_test", "false"],
+                          hooks=[CapturableAdam()])
+    rel_same = _max_rel(got, _losses(same))
+    check(rel_same <= 1e-4, f"captured vs eager (capturable Adam) stage-1 losses: max rel {rel_same:.3e}")
+    rel = _max_rel(got, want)
+    check(rel <= STAGE1_CAPTURED_RTOL,
+          f"captured vs eager stage-1 losses: max rel {rel:.3e} > {STAGE1_CAPTURED_RTOL}")
+    sps = trainer.n_train / clock.seconds[-1]
+    log(f"[training_captured] {steps} captured steps (graph launches per replay "
+        f"{trainer._graph.per_replay}); launches {launches}; losses vs an eager run with capturable "
+        f"Adam max rel {rel_same:.3e} (rtol 1e-4), vs the eager run max rel {rel:.3e} (rtol "
+        f"{STAGE1_CAPTURED_RTOL}); epoch seconds {clock.seconds}, the last {sps:.1f} samples/s ok")
+    return trainer, launches, dict(loss_rel=rel, loss_rel_capturable=rel_same, epoch_samples_per_s=sps)
+
+
+def phase_remat(work, dev, sr_dir):
+    """4 f32 steps of the full-width STSR at B=8 with ``remat`` against
+    without, eager and captured (3 warm-up steps, the capture, a replay),
+    cuDNN deterministic: the BN statistics and
+    num_batches_tracked equal (atol 1e-6 on the statistics; the undone
+    recompute leaves them bit for bit), the losses at rtol 1e-5."""
+    out = {}
+    _, runs = _f32_sr_runs(work, dev, sr_dir, REMAT_STEPS, {
+        "eager": {}, "eager_remat": {"remat": True},
+        "captured": {"scan_epochs": True}, "captured_remat": {"scan_epochs": True, "remat": True}})
+    for mode in ("eager", "captured"):
+        plain, remat = _cpu_state(runs[mode]), _cpu_state(runs[f"{mode}_remat"])
+        np.testing.assert_allclose(_losses(runs[f"{mode}_remat"]), _losses(runs[mode]), rtol=1e-5)
+        worst = 0.0
+        for k, v in plain.items():
+            if k.endswith("num_batches_tracked"):
+                check(int(remat[k]) == int(v) == REMAT_STEPS,
+                      f"{mode} remat: {k} {int(remat[k])} vs {int(v)}")
+            elif k.endswith(("running_mean", "running_var")):
+                worst = max(worst, float((remat[k] - v).abs().max()))
+        check(worst <= 1e-6, f"{mode} remat: BN statistics max|d| {worst:.3e}")
+        out[mode] = dict(stats_max_abs=worst, loss_rel=_max_rel(_losses(runs[f"{mode}_remat"]),
+                                                                 _losses(runs[mode])))
+        log(f"[remat] {mode}: {REMAT_STEPS} f32 steps with remat vs without: BN statistics max|d| "
+            f"{worst:.3e}, num_batches_tracked equal, losses max rel {out[mode]['loss_rel']:.3e} "
+            "(rtol 1e-5) ok")
+    return out
+
+
+def cnn_flops_per_frame(scale=10, msrb_cnt=6):
+    """Forward conv FLOPs of one TactileSRCNN frame (2 x MACs), at (4 x
+    scale)^2 pixels."""
+    px = (4 * scale) ** 2
+
+    def conv(cin, cout, k):
+        return 2 * cin * cout * k * k * px
+
+    msrb = conv(64, 64, 3) + conv(64, 64, 5) + conv(128, 128, 3) + conv(128, 128, 5) + conv(256, 64, 1)
+    return conv(3, 64, 3) + 2 * conv(64, 64, 3) + msrb_cnt * msrb + conv(64, 1, 3)
+
+
+def phase_cnn(work, dev, sr_dir):
+    """TactileSRCNN through the STSR entry (``--model_arch TactileSRCNN
+    --scan_epochs true``, the recipe's defaults: scale 10, 6 MSRB, B=32,
+    bf16) for CNN_EPOCHS epochs, captured; then its ``latest.pth`` served
+    by ``SRPredictor(model_arch="TactileSRCNN")``, bf16 and fused, against
+    its own f32 eval forward at ``phase_serving_trained``'s rule, and fused
+    f32 against unfused f32 at F32_RTOL."""
+    clock, start = EpochClock(), StartState()
+    trainer = sr_task._cli(_sr_argv(os.path.join(work, "cnn"), sr_dir, CNN_EPOCHS,
+                                    "--model_arch", "TactileSRCNN", "--scan_epochs", "true"),
+                           hooks=[clock, start])
+    torch.cuda.synchronize()
+    check(isinstance(trainer.model, TactileSRCNN) and len(trainer.model.msrb_layer) == 6,
+          f"not the full-width CNN: {type(trainer.model).__name__}")
+    check(trainer.model.dtype == torch.bfloat16 and trainer._graph is not None,
+          "the CNN did not train captured in bf16")
+    _check_sr_run("cnn", trainer, start.state, CNN_EPOCHS * trainer.epoch_len)
+    ckpt = os.path.join(work, "cnn", "checkpoints", "latest.pth")
+
+    apply_matmul_precision({"matmul_precision": "highest"})
+    with np.load(os.path.join(sr_dir, "SRdataset_test.npz")) as z:
+        lr = np.ascontiguousarray(z["LR"][:, :3])
+    x = torch.from_numpy(lr)
+
+    def model(dtype):
+        m = TactileSRCNN(dtype=dtype)
+        m.load_state_dict(load_checkpoint_file(ckpt)["model"], strict=True)
+        return m
+
+    sr = SRPredictor(ckpt, model_arch="TactileSRCNN").predict(lr)
+    check(sr.shape == (lr.shape[0], 1, 40, 40) and np.isfinite(sr).all(), f"CNN served {sr.shape}")
+    ref = _unfused_f32(model(torch.float32), x, dev).cpu().numpy()
+    own = _unfused_f32(model(torch.bfloat16), x, dev).cpu().numpy()
+    fused32 = SRPredictor(ckpt, model_arch="TactileSRCNN", compute_dtype="float32").predict(lr)
+    scale = float(np.abs(ref).max())
+    np.testing.assert_allclose(fused32, ref, rtol=F32_RTOL, atol=F32_ATOL_REL * max(scale, 1e-12))
+    err, own_err = float(np.abs(sr - ref).max()), float(np.abs(own - ref).max())
+    limit = max(BF16_REL * scale, 2 * own_err)
+    served = dict(frames=lr.shape[0], ref_max=scale, bf16_max_abs=err, own_bf16_max_abs=own_err,
+                  fused_f32_max_abs=float(np.abs(fused32 - ref).max()))
+    log(f"[cnn] trained TactileSRCNN served, {lr.shape[0]} test frames: fused f32 vs unfused f32 "
+        f"max|d|={served['fused_f32_max_abs']:.3e} (rtol {F32_RTOL}, atol {F32_ATOL_REL} x ref max) ok; "
+        f"served bf16 vs f32 eval max|d|={err:.4g}, the model's own bf16 eval forward {own_err:.4g}, "
+        f"ref max {scale:.4g}; limit {limit:.4g} = max({BF16_REL} x ref max, 2 x its own)")
+    check(err <= limit, f"CNN: bf16 max|d|={err:.4g} > {limit:.4g}")
+    return trainer, dict(served=served, epoch_samples_per_s=trainer.n_train / clock.seconds[-1])
+
+
+def phase_profiler(work, dev, sr_dir):
+    """ProfilerHook over iterations 1-3 of an eager run of the full-width
+    STSR (B=8, 5 steps, bf16): the Chrome trace it writes holds the card's
+    kernels by name."""
+    cfg = dict(tactileSR_config, warmup_t=0, train_batch_size=SR_PARITY_BATCH)
+    with np.load(os.path.join(sr_dir, "SRdataset_train.npz")) as z:
+        arrays = {"LR": z["LR"][:5 * SR_PARITY_BATCH], "HR": z["HR"][:5 * SR_PARITY_BATCH]}
+    model = sr_task.build_model(cfg)
+    t = _sr_trainer(cfg, model, arrays, os.path.join(work, "profiled"), dev, max_epochs=1,
+                    epoch_len=5)
+    hook = ProfilerHook(os.path.join(work, "trace"), start_iter=1, num_iters=3)
+    t.register_hooks([hook])
+    t.train(auto_resume=False)
+    check(hook.trace_path is not None and os.path.exists(hook.trace_path), "no trace written")
+    with open(hook.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    check(len(kernels) > 0, "the trace names no CUDA kernel")
+    check(any("cudnn" in k or "conv" in k.lower() for k in kernels), "the trace holds no convolution")
+    log(f"[profiler] ProfilerHook trace of iterations 1-3: {len(events)} events, {len(kernels)} CUDA "
+        f"kernels ({len(set(kernels))} names), e.g. {sorted(set(kernels))[:2]} ok")
+    return len(kernels)
 
 
 def phase_generation_seqs(work, dev, raw, ckpt):
@@ -726,7 +1043,8 @@ def phase_serving_trained(dev, stsr_ckpt, sr_dir, mtsr_ckpt, seqs_dir):
     model's own bf16 eval forward already strays further (BatchNorm
     subtracting running means much larger than the spread, so bf16's
     relative rounding of the conv output is magnified), within twice that
-    stray."""
+    stray.  f32 here means no TF32 (``matmul_precision: highest``)."""
+    apply_matmul_precision({"matmul_precision": "highest"})
     out = {}
     for name, ckpt, path, seqs_cnt in (
             ("STSR", stsr_ckpt, os.path.join(sr_dir, "SRdataset_test.npz"), 1),
@@ -738,12 +1056,7 @@ def phase_serving_trained(dev, stsr_ckpt, sr_dir, mtsr_ckpt, seqs_dir):
         check(sr.shape == (lr.shape[0], 1, 40, 40) and np.isfinite(sr).all(), f"{name}: {sr.shape}")
         ref = _unfused_f32(_trained_model(ckpt, seqs_cnt), x, dev).cpu().numpy()
         own = _unfused_f32(_trained_model(ckpt, seqs_cnt, torch.bfloat16), x, dev).cpu().numpy()
-        prev = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            fused32 = SRPredictor(ckpt, seqs_cnt=seqs_cnt, compute_dtype="float32").predict(lr)
-        finally:
-            torch.backends.cudnn.allow_tf32 = prev
+        fused32 = SRPredictor(ckpt, seqs_cnt=seqs_cnt, compute_dtype="float32").predict(lr)
         scale = float(np.abs(ref).max())
         np.testing.assert_allclose(fused32, ref, rtol=F32_RTOL, atol=F32_ATOL_REL * max(scale, 1e-12))
         err, own_err = float(np.abs(sr - ref).max()), float(np.abs(own - ref).max())
@@ -780,17 +1093,16 @@ def _stsr(seed, pattern_layers=6):
 
 
 def _unfused_f32(model, x, dev, chunk=256):
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        model = model.to(dev).eval()
-        with torch.no_grad():
-            return torch.cat([model(x[i:i + chunk].to(dev)) for i in range(0, x.shape[0], chunk)])
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
+    """The eval forward of ``model`` over ``x`` in chunks (f32 when the
+    caller applied ``matmul_precision: highest``)."""
+    check(not torch.backends.cudnn.allow_tf32, "an f32 reference with cuDNN in TF32")
+    model = model.to(dev).eval()
+    with torch.no_grad():
+        return torch.cat([model(x[i:i + chunk].to(dev)) for i in range(0, x.shape[0], chunk)])
 
 
 def phase_serving(work, dev, test_lr, n_big=1500):
+    apply_matmul_precision({"matmul_precision": "highest"})  # the f32 references below
     model = _stsr(seed=11)
     ckpt = save_checkpoint_file(os.path.join(work, "stsr_a.pth"), model.state_dict())
     ckpt_b = save_checkpoint_file(os.path.join(work, "stsr_b.pth"), _stsr(seed=12).state_dict())
@@ -821,13 +1133,8 @@ def phase_serving(work, dev, test_lr, n_big=1500):
 
     # fused f32 graph vs the unfused f32 eval forward
     x = torch.from_numpy(requests["big request"][:256]).to(dev)
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        folded = fold_inference_params(model.state_dict(), dtype=torch.float32, device=dev)
-        fused = tactile_sr_infer(folded, x)
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
+    folded = fold_inference_params(model.state_dict(), dtype=torch.float32, device=dev)
+    fused = tactile_sr_infer(folded, x)
     ref = _unfused_f32(model, x, dev)
     atol = F32_ATOL_REL * float(ref.abs().max())
     torch.testing.assert_close(fused, ref, rtol=F32_RTOL, atol=atol)
@@ -851,10 +1158,16 @@ def phase_serving(work, dev, test_lr, n_big=1500):
     return pred
 
 
+HOST_LAUNCH = re.compile(r"^(cudaLaunchKernel|cudaLaunchKernelExC|cuLaunchKernel|cuLaunchKernelEx|"
+                         r"cudaGraphLaunch|cudaMemcpyAsync|cudaMemsetAsync)")
+
+
 def device_profile(fn, n=5):
     """One torch.profiler trace of ``n`` calls: the device's busy ms per call
     (the kernels' and copies' own device times summed; None when the trace
-    holds no device time), device ops per call, and the five largest."""
+    holds no device time), device ops per call, the five largest, and the
+    host's launch calls per call (kernel launches, copies, memsets and
+    graph launches: a replayed CUDA graph is one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -870,9 +1183,24 @@ def device_profile(fn, n=5):
            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in dev) / 1e3 / n
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU and HOST_LAUNCH.match(e.key))
     return dict(busy_ms=busy if busy > 0 else None,
                 kernels=sum(e.count for e in dev) / n,
+                host_launches=launches / n,
                 top=[(e.key[:60], round(e.self_device_time_total / 1e3 / n, 4)) for e in top])
+
+
+def _eager_step(t):
+    """One step of trainer ``t`` through its eager step function, on a
+    fixed batch (the first of a seeded epoch)."""
+    from tactilesr_torch.data.loader import epoch_batches
+
+    idx, mask = next(epoch_batches(t.n_train, t.batch_size, True, np.random.default_rng(0)))
+    weights = mask.reshape(t.grad_accum, -1).sum(axis=1)
+    idx_t, mask_t = t._to_device(idx), t._to_device(mask)
+    lr_now = t.lr
+    return lambda: t._step(idx_t, mask_t, lr_now, weights)
 
 
 def phase_train_times(trainer):
@@ -881,8 +1209,6 @@ def phase_train_times(trainer):
     forward and backward together and the plain version of that, the
     optimizer, the whole step (CUDA events), and the device's busy time in
     the step, the backward and the optimizer (torch.profiler)."""
-    from tactilesr_torch.data.loader import epoch_batches
-
     dev, b = trainer.device, MAIN_BATCH
     depth, abm = physics_inputs(b, dev, seed=300)
     a = abm.clone().requires_grad_(True)
@@ -899,18 +1225,15 @@ def phase_train_times(trainer):
     t["plain_ms"] = cuda_ms(plain_fwd_bwd, 50)
     t["bound_ms"], t["bound_by"] = fused_bound_ms(b)
 
-    idx, mask = next(epoch_batches(trainer.n_train, b, True, np.random.default_rng(0)))
-    weights = mask.reshape(trainer.grad_accum, -1).sum(axis=1)
-    idx_t, mask_t = trainer._to_device(idx), trainer._to_device(mask)
-    lr_now = trainer.lr
-    t["step_ms"] = cuda_ms(lambda: trainer._step(idx_t, mask_t, lr_now, weights), 50)
+    step, lr_now = _eager_step(trainer), trainer.lr
+    t["step_ms"] = cuda_ms(step, 50)
     t["optimizer_ms"] = cuda_ms(lambda: trainer.optimizer.step(lr_now), 100)
     log(f"[times] train step B={b} (bf16 MLP): whole step {t['step_ms']:.4f} ms; physics forward "
         f"(kernel) {t['forward_ms']:.4f} ms, kernel backward {t['backward_ms']:.4f} ms, "
         f"forward+backward {t['ms']:.4f} ms (plain, TF32 off: {t['plain_ms']:.4f} ms; bound "
         f"{t['bound_ms']:.4f} ms, {t['bound_by']}); Adam {t['optimizer_ms']:.4f} ms")
     for name, fn, ms in (
-        ("whole step", lambda: trainer._step(idx_t, mask_t, lr_now, weights), t["step_ms"]),
+        ("whole step", step, t["step_ms"]),
         ("kernel backward", lambda: torch.autograd.grad(lr, a, g_lr, retain_graph=True),
          t["backward_ms"]),
         ("optimizer", lambda: trainer.optimizer.step(lr_now), t["optimizer_ms"]),
@@ -969,22 +1292,13 @@ def phase_sr_times(runs):
     at the recipe's batch (CUDA events), its device ops, busy time and
     largest ops (torch.profiler), its model FLOPs utilisation (conv FLOPs
     over the bf16 dense peak), and the eval call over the test split."""
-    from tactilesr_torch.data.loader import epoch_batches
-
     out = {}
     for name, t, path, seqs in runs:
         b = t.batch_size
         per_frame, parts = sr_flops_per_frame(seqs=seqs)
         log(f"[times] {name} forward conv FLOPs per frame: {per_frame / 1e9:.3f} G = "
             + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items()))
-        idx, mask = next(epoch_batches(t.n_train, b, True, np.random.default_rng(0)))
-        weights = mask.reshape(t.grad_accum, -1).sum(axis=1)
-        idx_t, mask_t = t._to_device(idx), t._to_device(mask)
-        lr_now = t.lr
-
-        def step():
-            return t._step(idx_t, mask_t, lr_now, weights)
-
+        step = _eager_step(t)
         ms = cuda_ms(step, 20)
         prof = device_profile(step)
         flops = 3 * per_frame * b  # forward and backward (twice the forward)
@@ -1002,6 +1316,61 @@ def phase_sr_times(runs):
             f"peak, MFU {bound / ms * 100:.2f}%; eval of {arrays['LR'].shape[0]} test rows "
             f"{eval_ms:.3f} ms")
     log("[times] sr " + json.dumps(out))
+    return out
+
+
+def step_times(step, iters=20):
+    """ms per call of ``step`` (CUDA events) and one torch.profiler trace
+    of it (device ops, busy ms, host launch calls)."""
+    ms = cuda_ms(step, iters)
+    return dict(step_ms=ms, step_profile=device_profile(step))
+
+
+def captured_step_times(t, iters=20):
+    """The captured step of a scan-mode trainer: ms per replay (CUDA events
+    over ``iters`` replays) and one torch.profiler trace of replays.  The
+    step counter goes back to the epoch's first row before each run of
+    replays (at most 8 + ``iters`` of them, within the epoch), so they
+    train on the last epoch's rows."""
+    check(t._graph is not None and iters + 3 <= t.epoch_len, "no graph, or an epoch too short")
+
+    def replay():
+        t._graph.replay()
+
+    t._scan.k.zero_()
+    ms = cuda_ms(replay, iters)
+    t._scan.k.zero_()
+    prof = device_profile(replay)
+    t._scan.k.zero_()
+    return dict(step_ms=ms, step_profile=prof)
+
+
+def _share(prof, ms):
+    busy = prof["busy_ms"]
+    return "not measured" if busy is None else f"{busy:.4f} ms = {busy / ms * 100:.1f}%"
+
+
+def phase_captured_times(runs):
+    """For each (name, eager trainer or None, captured trainer, conv FLOPs
+    per step or None) in ``runs``: the eager step and the captured step at
+    the recipe's batch, each with its ms (CUDA events), device ops, host
+    launch calls and busy share (torch.profiler), and MFU where the step's
+    work is convolutions (over the bf16 dense peak)."""
+    out = {}
+    for name, eager, capt, flops in runs:
+        row = {"captured": captured_step_times(capt)}
+        if eager is not None:
+            row["eager"] = step_times(_eager_step(eager))
+        for mode, r in row.items():
+            prof, ms = r["step_profile"], r["step_ms"]
+            if flops:
+                r["mfu"] = flops / PEAK_BF16_FLOPS * 1e3 / ms
+            log(f"[times] {name} {mode} step B={capt.batch_size}: {ms:.4f} ms (CUDA events); "
+                f"{prof['kernels']:.0f} device ops, {prof['host_launches']:.0f} host launch calls per "
+                f"step; device busy {_share(prof, ms)}"
+                + (f"; MFU {r['mfu'] * 100:.2f}%" if flops else "") + f"; largest: {prof['top'][:3]}")
+        out[name] = row
+    log("[times] captured " + json.dumps(out))
     return out
 
 
@@ -1035,12 +1404,18 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         trainer, raw, ckpt, train_launches, grad_err, epoch_sps = phase("training", phase_training,
                                                                          work, dev)
+        tpsf_capt, capt_launches, tpsf_capt_info = phase("training_captured", phase_training_captured,
+                                                         work, raw, trainer)
         # the recipe allowed TF32 for f32 matmuls (matmul_precision "default");
         # stage 2 runs in a process of its own, at torch's default
         torch.set_float32_matmul_precision("highest")
         gen_launches, test_lr, sr_dir = phase("generation", phase_generation, work, dev, raw, ckpt)
         stsr, stsr_ckpt, stsr_sps = phase("sr", phase_sr_training, work, sr_dir)
         parity = phase("sr_parity", phase_sr_parity, work, sr_dir)
+        stsr_capt, sr_capt_info = phase("sr_captured", phase_sr_captured, work, dev, sr_dir)
+        remat = phase("remat", phase_remat, work, dev, sr_dir)
+        cnn, cnn_info = phase("cnn", phase_cnn, work, dev, sr_dir)
+        n_trace_kernels = phase("profiler", phase_profiler, work, dev, sr_dir)
         torch.set_float32_matmul_precision("highest")
         seqs_launches, seqs_dir = phase("generation_seqs", phase_generation_seqs, work, dev, raw, ckpt)
         mtsr, mtsr_ckpt, mtsr_sps = phase("seqs", phase_mtsr_training, work, seqs_dir, stsr_ckpt)
@@ -1052,14 +1427,24 @@ def main():
         sr_t = phase("sr_times", phase_sr_times, [
             ("STSR", stsr, os.path.join(sr_dir, "SRdataset_test.npz"), 1),
             ("MTSR", mtsr, os.path.join(seqs_dir, "SRdataset_test_32.npz"), 7)])
+        capt_t = phase("captured_times", phase_captured_times, [
+            ("STSR", None, stsr_capt, 3 * sr_flops_per_frame()[0] * stsr_capt.batch_size),
+            ("stage 1", None, tpsf_capt, None),
+            ("TactileSRCNN", cnn, cnn, 3 * cnn_flops_per_frame() * cnn.batch_size)])
     log(f"[times] SR epochs: STSR {stsr_sps:.1f} samples/s, MTSR {mtsr_sps:.1f} samples/s; "
         f"STSR step {sr_t['STSR']['step_ms']:.4f} ms (MFU {sr_t['STSR']['mfu'] * 100:.2f}%), "
         f"MTSR step {sr_t['MTSR']['step_ms']:.4f} ms (MFU {sr_t['MTSR']['mfu'] * 100:.2f}%); "
         f"card vs CPU loss rel {parity['loss_rel']:.3e}; trained serving {served}")
+    log(f"[times] captured: STSR step {capt_t['STSR']['captured']['step_ms']:.4f} ms (eager "
+        f"{sr_t['STSR']['step_ms']:.4f}), stage 1 {capt_t['stage 1']['captured']['step_ms']:.4f} ms "
+        f"(eager {train_t['step_ms']:.4f}), TactileSRCNN {capt_t['TactileSRCNN']['captured']['step_ms']:.4f} "
+        f"ms (eager {capt_t['TactileSRCNN']['eager']['step_ms']:.4f}); captured vs eager losses: STSR f32 "
+        f"{sr_capt_info['loss_rel']:.3e}, stage 1 {tpsf_capt_info['loss_rel']:.3e}; remat {remat}; CNN "
+        f"{cnn_info}; {n_trace_kernels} kernels in the profiler trace")
     smi = nvidia_smi_line()
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s: {phase.seconds}")
-    by_path = {"training": train_launches, "generation": gen_launches,
-               "generation_seqs": seqs_launches}
+    by_path = {"training": train_launches, "training_captured": capt_launches,
+               "generation": gen_launches, "generation_seqs": seqs_launches}
     main_t = times[MAIN_BATCH]
     record = {"kernels": [
         {
@@ -1103,7 +1488,7 @@ def main():
             "route": "cuda forward + cuda backward",
             "source": "tactilesr_torch/ops/cuda/__init__.py",
             "replaces": "tactilesr_tpu/ops/pallas/tpsf_kernel.py:190",
-            "launches": train_launches["tpsf_physics_fused"],
+            "launches": sum(p["tpsf_physics_fused"] for p in by_path.values()),
             "launches_by_path": {k: p["tpsf_physics_fused"] for k, p in by_path.items()},
             "max_abs_err": grad_err,
             "ms": train_t["ms"],
@@ -1120,6 +1505,9 @@ def main():
             "step_profile": train_t["whole_step_profile"],
             "backward_profile": train_t["kernel_backward_profile"],
             "optimizer_profile": train_t["optimizer_profile"],
+            "captured_step_ms": capt_t["stage 1"]["captured"]["step_ms"],
+            "captured_step_profile": capt_t["stage 1"]["captured"]["step_profile"],
+            "captured_epoch_samples_per_s": tpsf_capt_info["epoch_samples_per_s"],
         },
     ]}
     print(smi, flush=True)

@@ -16,7 +16,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["tactile_sr_state_dict", "tpsf_net_state_dict"]
+__all__ = ["tactile_sr_state_dict", "tactile_srcnn_state_dict", "tpsf_net_state_dict"]
 
 
 def _t(a) -> torch.Tensor:
@@ -35,6 +35,13 @@ def _put_bn(sd: dict, prefix: str, bn_params: dict, bn_stats: dict) -> None:
     sd[f"{prefix}.running_mean"] = _t(bn_stats["mean"])
     sd[f"{prefix}.running_var"] = _t(bn_stats["var"])
     sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def _put_msrb(sd: dict, prefix: str, p: dict, st: dict) -> None:
+    for name in ("conv_3_1", "conv_5_1", "conv_3_2", "conv_5_2"):
+        _put_conv(sd, f"{prefix}.{name}.0", p[name])
+        _put_bn(sd, f"{prefix}.{name}.1", p[f"{name}_bn"], st[f"{name}_bn"])
+    _put_conv(sd, f"{prefix}.confusion", p["confusion"])
 
 
 def _count(params: dict, pattern: str) -> int:
@@ -58,12 +65,8 @@ def tactile_sr_state_dict(variables: Dict[str, dict]) -> dict:
             stats["inputContact_layer_bn"])
 
     for i in range(_count(params, r"patternFeatureExtra_layer_(\d+)$")):
-        p, st = params[f"patternFeatureExtra_layer_{i}"], stats[f"patternFeatureExtra_layer_{i}"]
-        pre = f"patternFeatureExtra_layer.{i}"
-        for name in ("conv_3_1", "conv_5_1", "conv_3_2", "conv_5_2"):
-            _put_conv(sd, f"{pre}.{name}.0", p[name])
-            _put_bn(sd, f"{pre}.{name}.1", p[f"{name}_bn"], st[f"{name}_bn"])
-        _put_conv(sd, f"{pre}.confusion", p["confusion"])
+        _put_msrb(sd, f"patternFeatureExtra_layer.{i}", params[f"patternFeatureExtra_layer_{i}"],
+                  stats[f"patternFeatureExtra_layer_{i}"])
 
     _put_conv(sd, "input_layer_force.1", params["input_layer_force"])
     for i in range(_count(params, r"forceFeatureExtra_layer_(\d+)$")):
@@ -73,6 +76,19 @@ def tactile_sr_state_dict(variables: Dict[str, dict]) -> dict:
 
     _put_conv(sd, "output_layer.0", params["output_conv0"])
     _put_conv(sd, "output_layer.2", params["output_conv1"])
+    return sd
+
+
+def tactile_srcnn_state_dict(variables: Dict[str, dict]) -> dict:
+    """JAX TactileSRCNN variables -> the port's ``TactileSRCNN`` state_dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    for i, (conv_i, bn_i) in enumerate([(0, 1), (3, 4), (6, 7)]):
+        _put_conv(sd, f"input_zyx.{conv_i}", params[f"input_zyx_conv{i}"])
+        _put_bn(sd, f"input_zyx.{bn_i}", params[f"input_zyx_bn{i}"], stats[f"input_zyx_bn{i}"])
+    for i in range(_count(params, r"msrb_layer_(\d+)$")):
+        _put_msrb(sd, f"msrb_layer.{i}", params[f"msrb_layer_{i}"], stats[f"msrb_layer_{i}"])
+    _put_conv(sd, "output.0", params["output_conv"])
     return sd
 
 

@@ -7,15 +7,18 @@ The port reads them so:
 - ``device`` (added here): where the recipe runs, ``"cuda"`` by default; a
   run without a GPU raises unless it asks for ``"cpu"``;
 - ``compute_dtype``: the dtype of the MLP's products (params stay f32);
-- ``matmul_precision``: ``highest`` turns TF32 off for f32 CUDA matmuls,
-  ``high`` and ``default`` allow it (``runtime/misc.py``);
+- ``matmul_precision``: ``highest`` turns TF32 off for f32 CUDA matmuls
+  and cuDNN convolutions, ``high`` and ``default`` allow it (``runtime/misc.py``);
 - ``use_pallas_physics``: ``auto`` or true runs the physics through the
   CUDA kernel's autograd wrapper on CUDA tensors, false through the plain
   version under autograd (``tasks/tpsf_task.py``);
 - ``physics_precision``: only ``highest`` (f32 FMA) is ported;
-- ``scan_epochs`` and ``remat`` must stay False (not ported);
-- ``model_arch``: only ``TactileSR`` is ported; ``TactileSRCNN`` raises
-  ``NotImplementedError`` (``tasks/sr_task.py``);
+- ``scan_epochs``: each epoch as replays of one CUDA-graph-captured train
+  step on a GPU (the same step uncaptured on the CPU); ``remat``:
+  activation checkpointing of the forward and loss
+  (``runtime/trainer.py``);
+- ``model_arch``: ``TactileSR`` or ``TactileSRCNN`` (single-frame,
+  ``tasks/sr_task.py``);
 - ``load_checkpoint_dir`` (tactileSeqs): a port ``.pth`` bundle of the
   trained STSR, whose trunk warm-starts the MTSR;
 - ``data_parallel``: the port trains on one device, so only ``auto`` and

@@ -6,18 +6,24 @@
   model/tactileSR_model.py:157-214).  Keys ``conv_3_1.{0,1}`` ... and
   ``confusion``.
 - ``ResBlock``: conv-ReLU-conv plus residual, ReLU (reference :216-225).
+- ``LeakyResBlock``: conv-BN-leaky ReLU (slope 1.0, the identity) -
+  conv-BN, residual add, leaky ReLU at ``negative_slope`` (0.2); bias-free
+  convs; unused by the recipes but part of the reference's model surface
+  (reference :227-241, the JAX package's ``blocks.py:64-80``).  Keys
+  ``conv1``, ``bn1``, ``conv2``, ``bn2``.
 
-Every conv here carries a bias (torch's Conv2d default).
+Every conv of MSRB and ResBlock carries a bias (torch's Conv2d default).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from .layers import BatchNorm, Conv
 
-__all__ = ["MSRB", "ResBlock"]
+__all__ = ["MSRB", "ResBlock", "LeakyResBlock"]
 
 
 def _cbr(cin: int, cout: int, k: int) -> nn.Sequential:
@@ -49,3 +55,18 @@ class ResBlock(nn.Module):
     def forward(self, x):
         y = self.conv2(torch.relu(self.conv1(x)))
         return torch.relu(x + y)
+
+
+class LeakyResBlock(nn.Module):
+    def __init__(self, n_feats: int = 64, negative_slope: float = 0.2):
+        super().__init__()
+        self.negative_slope = negative_slope
+        self.conv1 = Conv(n_feats, n_feats, 3, bias=False)
+        self.bn1 = BatchNorm(n_feats)
+        self.conv2 = Conv(n_feats, n_feats, 3, bias=False)
+        self.bn2 = BatchNorm(n_feats)
+
+    def forward(self, x):
+        y = F.leaky_relu(self.bn1(self.conv1(x)), negative_slope=1.0)
+        y = self.bn2(self.conv2(y))
+        return F.leaky_relu(y + x, negative_slope=self.negative_slope)

@@ -20,6 +20,9 @@ add.  Convolutions are ``F.conv2d`` in NCHW.
 
 :func:`fold_inference_params` takes the port's ``TactileSR`` state_dict
 (the reference layout); :func:`tactile_sr_infer` is the forward.
+:func:`fold_inference_params_cnn` and :func:`tactile_sr_cnn_infer` are the
+same for ``TactileSRCNN``: BN folded into its three input convs, each MSRB
+merged and split as TactileSR's.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch.nn.functional as F
 
 from ..ops.resize import resize_bilinear_nchw, upsample_bilinear
 
-__all__ = ["fold_inference_params", "tactile_sr_infer"]
+__all__ = ["fold_inference_params", "fold_inference_params_cnn", "tactile_sr_infer",
+           "tactile_sr_cnn_infer"]
 
 _EPS = 1e-5  # torch BatchNorm2d default
 
@@ -142,6 +146,36 @@ def fold_inference_params(
         f"do seqs_cnt={seqs_cnt}, pattern_layers={pattern_layers}, "
         f"force_layers={force_layers} match the trained architecture?",
     )
+    return _placed(out, dtype, device)
+
+
+def fold_inference_params_cnn(
+    state_dict: dict,
+    *,
+    msrb_cnt: int = 6,
+    dtype: torch.dtype = torch.bfloat16,
+    device="cpu",
+) -> dict:
+    """Rewrite a TactileSRCNN state_dict into its fused serving layout: BN
+    folded into the three input convs, every MSRB merged and split as in
+    :func:`fold_inference_params`.  Same return value and errors."""
+    rd = _Reader(state_dict)
+    out: dict = {}
+    for i, (conv_i, bn_i) in enumerate([(0, 1), (3, 4), (6, 7)]):
+        out[f"in{i}/k"], out[f"in{i}/b"] = _fold_bn(rd, f"input_zyx.{conv_i}", f"input_zyx.{bn_i}")
+    for i in range(msrb_cnt):
+        _fold_msrb(rd, f"msrb_layer.{i}", f"msrb_{i}", out)
+    out["head/k"] = rd("output.0.weight")
+    _check_all_consumed(
+        state_dict, rd.read,
+        f"does msrb_cnt={msrb_cnt} match the trained TactileSRCNN (and is this really a "
+        "TactileSRCNN checkpoint)?",
+    )
+    return _placed(out, dtype, device)
+
+
+def _placed(out: dict, dtype: torch.dtype, device) -> dict:
+    """Kernels (``.../k*``) in ``dtype``, biases in f32, on ``device``."""
     return {
         k: v.to(device, dtype if k.rsplit("/", 1)[-1].startswith("k") else torch.float32).contiguous()
         for k, v in out.items()
@@ -208,3 +242,23 @@ def tactile_sr_infer(
     out = relu(_conv(out, folded["head1/k"], pad=1))
     hw = 4 * scale_factor
     return resize_bilinear_nchw(out, (hw, hw)).float()
+
+
+@torch.no_grad()
+def tactile_sr_cnn_infer(
+    folded: dict,
+    x: torch.Tensor,
+    *,
+    scale_factor: int = 10,
+    msrb_cnt: int = 6,
+) -> torch.Tensor:
+    """Fused serving forward of TactileSRCNN: (B, 3, 4, 4) f32 -> (B, 1, 4s,
+    4s) f32, the same function as ``TactileSRCNN.eval()(x)``; ``folded``
+    comes from :func:`fold_inference_params_cnn` and sets the compute dtype."""
+    dt = folded["head/k"].dtype
+    h = upsample_bilinear(x.float(), scale_factor).to(dt)
+    for i in range(3):
+        h = torch.relu(_conv(h, folded[f"in{i}/k"], folded[f"in{i}/b"], pad=1))
+    for i in range(msrb_cnt):
+        h = _msrb_infer(folded, f"msrb_{i}", h)
+    return torch.relu(_conv(h, folded["head/k"], pad=1)).float()

@@ -1,4 +1,5 @@
-"""TactileSR, the ToH-2024 SR network (STSR when ``seqs_cnt == 1``).
+"""TactileSR, the ToH-2024 SR network (STSR when ``seqs_cnt == 1``), and
+TactileSRCNN, the IROS-2022 single-frame baseline.
 
 Per-sequence-frame pattern branch (bilinear x-scale upsample, then two
 conv3x3-BN-ReLU), branch concat, fuse conv-BN-ReLU, MSRB trunk; a parallel
@@ -22,6 +23,13 @@ so the head cannot be born dead.  The parameter tree is the same either
 way.  In ``train()`` mode the BatchNorms normalise by the batch statistics
 and update their running statistics (torch's momentum 0.1 and unbiased
 running variance, as the JAX ``BatchNorm``).
+
+``TactileSRCNN`` (reference model/tactileSR_model.py:101-153, the JAX
+package's ``tactile_sr.py:132-161``): bilinear x``scale_factor`` upsample,
+3 x (conv3x3 64, BN, ReLU) as ``input_zyx.{0,1,3,4,6,7}``, ``msrb_cnt``
+MSRBs as ``msrb_layer.{i}``, and a bias-free 3x3 head to one channel, then
+ReLU, as ``output.0``.  Input (B, 3, 4, 4), output (B, 1, 4*scale, 4*scale)
+f32; the same ``dtype``, ``generator`` and ``head_init`` rules as TactileSR.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ from ..ops.resize import resize_bilinear_nchw, upsample_bilinear
 from .blocks import MSRB, ResBlock
 from .layers import BatchNorm, Conv, fold_non_negative_, init_weights_
 
-__all__ = ["TactileSR", "TAXEL_CNT", "HEAD_INITS"]
+__all__ = ["TactileSR", "TactileSRCNN", "TAXEL_CNT", "HEAD_INITS"]
 
 TAXEL_CNT = 4  # the Xela sensor is a 4x4 taxel grid
 HEAD_INITS = ("reference", "non_negative")
@@ -50,6 +58,11 @@ class Upsample(nn.Module):
         return upsample_bilinear(x, self.scale_factor)
 
 
+def _check_head_init(head_init: str) -> None:
+    if head_init not in HEAD_INITS:
+        raise ValueError(f"head_init must be one of {sorted(HEAD_INITS)}, got {head_init!r}")
+
+
 class TactileSR(nn.Module):
     def __init__(
         self,
@@ -63,8 +76,7 @@ class TactileSR(nn.Module):
         head_init: str = "reference",
     ):
         super().__init__()
-        if head_init not in HEAD_INITS:
-            raise ValueError(f"head_init must be one of {sorted(HEAD_INITS)}, got {head_init!r}")
+        _check_head_init(head_init)
         self.scale_factor = scale_factor
         self.seqs_cnt = seqs_cnt
         self.axis_cnt = axis_cnt
@@ -123,3 +135,43 @@ class TactileSR(nn.Module):
         out = self.output_layer(torch.cat([force, pattern], dim=1))
         hw = TAXEL_CNT * self.scale_factor
         return resize_bilinear_nchw(out, (hw, hw)).float()
+
+
+class TactileSRCNN(nn.Module):
+    def __init__(
+        self,
+        scale_factor: int = 10,
+        msrb_cnt: int = 6,
+        axis_cnt: int = 3,
+        dtype: torch.dtype = torch.float32,
+        generator: torch.Generator | None = None,
+        head_init: str = "reference",
+    ):
+        super().__init__()
+        _check_head_init(head_init)
+        self.scale_factor = scale_factor
+        self.seqs_cnt = 1
+        self.axis_cnt = axis_cnt
+        self.dtype = dtype
+        self.upsample = Upsample(scale_factor)
+        self.input_zyx = nn.Sequential(
+            Conv(axis_cnt, 64, 3, bias=False), BatchNorm(64), nn.ReLU(),
+            Conv(64, 64, 3, bias=False), BatchNorm(64), nn.ReLU(),
+            Conv(64, 64, 3, bias=False), BatchNorm(64), nn.ReLU(),
+        )
+        self.msrb_layer = nn.ModuleList(MSRB(64) for _ in range(msrb_cnt))
+        self.output = nn.Sequential(Conv(64, 1, 3, bias=False), nn.ReLU())
+
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        init_weights_(self, generator)
+        if head_init == "non_negative":  # the head is drawn last: no other draw changes
+            fold_non_negative_(self.output[0].weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[1] != self.axis_cnt:
+            raise ValueError(f"TactileSRCNN takes {self.axis_cnt} input channels, got {x.shape[1]}")
+        h = self.input_zyx(self.upsample(x.to(self.dtype)))
+        for blk in self.msrb_layer:
+            h = blk(h)
+        return self.output(h).float()

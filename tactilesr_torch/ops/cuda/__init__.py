@@ -10,7 +10,9 @@ import time: the CPU tests import this module on machines with no ``nvcc``.
 PyTorch version (``ops/psf.py::physics_plain``); on a CUDA tensor it
 launches the kernel or raises -- a failed build or launch is never replaced
 by the plain version.  ``launch_counts`` counts kernel launches so that a
-run can show its main path went through the kernel.
+run can show its main path went through the kernel; they are registered
+with ``ops/graph.py``, so a ``CapturedGraph`` that holds launches counts
+them at each replay, not at the capture.
 
 ``tpsf_physics_bwd`` is the wrapper of the backward kernel in the same
 source: the vector-Jacobian product of the physics in f32, recomputed from
@@ -41,6 +43,7 @@ import threading
 
 import torch
 
+from ..graph import register_counters
 from ..psf import (
     C_MASK, C_PSF, DEGRADE_SCALE, DISTURBANCE, HR_SIZE, TAXELS, f32_matmul, physics_plain,
     physics_vjp_plain,
@@ -75,6 +78,9 @@ build_log = ""  # nvcc's output of the build this process loaded (ptxas -v)
 
 # kernel names as the C++ source spells them -> their launch-count names
 KERNELS = {"tpsf_physics_kernel": "tpsf_physics", "tpsf_physics_bwd_kernel": "tpsf_physics_bwd"}
+
+
+register_counters(launch_counts)
 
 
 def reset_launch_counts() -> None:

@@ -53,8 +53,18 @@ def bilinear_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return _resize_matrix_np(in_size, out_size)
 
 
+_DEVICE_MATRICES: dict = {}
+
+
 def _matrix(in_size: int, out_size: int, device) -> torch.Tensor:
-    return torch.from_numpy(_resize_matrix_np(in_size, out_size).copy()).to(device)
+    """The matrix on ``device``, copied there once and kept: a CUDA graph
+    cannot capture a host-to-device copy, and replays read the matrix at the
+    address the capture saw."""
+    key = (in_size, out_size, torch.device(device))
+    mat = _DEVICE_MATRICES.get(key)
+    if mat is None:
+        mat = _DEVICE_MATRICES[key] = torch.from_numpy(_resize_matrix_np(in_size, out_size).copy()).to(device)
+    return mat
 
 
 def resize_bilinear_nchw(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

@@ -12,8 +12,9 @@ Contract parity (reference cpu/hooks/*):
   epochs/iters and at train end; float-dict results logged unsmoothed.
 - LoggerHook (logger_hook.py:14-106): priority 10 (last); console line every
   ``period`` inner iters with epoch/iter, ETA, smoothed losses, iter/data
-  time, lr, device memory; TensorBoard scalars with last-written-iter dedup;
-  total-time summary at train end.
+  time, lr, device memory (one line per epoch under ``scan_epochs``);
+  TensorBoard scalars with last-written-iter dedup; total-time summary at
+  train end.
 """
 
 from __future__ import annotations
@@ -189,4 +190,8 @@ class LoggerHook(HookBase):
 
     def after_epoch(self) -> None:
         self.trainer.flush_metrics()
+        if self.trainer.scan_epochs:
+            # no per-iteration callbacks in the scan path: one console line
+            # per epoch instead
+            self._write_console()
         self._write_tensorboard()

@@ -27,18 +27,22 @@ def compute_dtype(config) -> torch.dtype:
 
 
 def apply_matmul_precision(config) -> None:
-    """Apply the ``matmul_precision`` config key to torch's global flag.
+    """Apply the ``matmul_precision`` config key to torch's global flags, for
+    f32 matmuls and f32 cuDNN convolutions alike (the JAX flag governs both).
 
-    ``highest`` keeps f32 matmuls in full f32; ``high`` and ``default`` allow
-    TF32 on the card's tensor cores (the JAX package's "default" is one bf16
-    MXU pass on a TPU).  Always sets the flag, so consecutive runs in one
-    process cannot inherit a previous run's override.  The tPSF physics
-    backward turns TF32 off for itself whatever this says.
+    ``highest`` keeps both in full f32; ``high`` and ``default`` allow TF32
+    on the card's tensor cores (the JAX package's "default" is one bf16
+    MXU pass on a TPU).  Always sets both flags, so consecutive runs in one
+    process cannot inherit a previous run's override.  cuDNN's flag is set
+    through the legacy ``cudnn.allow_tf32`` attribute only: mixing it with
+    the newer ``fp32_precision`` API makes torch's precision getters raise.
+    The tPSF physics backward turns TF32 off for itself whatever this says.
     """
     prec = config.get("matmul_precision", "default") or "default"
     if prec not in _MATMUL_PRECISIONS:
         raise ValueError(f"matmul_precision={prec!r}: expected one of {sorted(_MATMUL_PRECISIONS)}")
     torch.set_float32_matmul_precision(_MATMUL_PRECISIONS[prec])
+    torch.backends.cudnn.allow_tf32 = prec != "highest"
 
 
 def collect_env() -> str:

@@ -25,6 +25,25 @@ Every forward outside the train step (evals, hooks) goes through
 ``model_apply``: eval mode under ``no_grad``, the model's mode restored
 after, so no such forward updates BatchNorm running statistics or leaves
 the model in eval mode for the next step.
+
+``scan_epochs`` is the counterpart of the JAX trainer's whole-epoch
+``lax.scan``: each epoch puts its (idx, mask, lr) rows on the device once,
+into fixed buffers, and a device step counter picks each step's row.  The
+step (``_scan_step``: gather, forward, backward, Adam, the loss written to a
+per-step buffer, the counter advanced) issues no host sync, so on CUDA it
+is captured once in a ``torch.cuda.CUDAGraph`` and every later step is one
+replay; an epoch ends with one fetch of its losses.  The first
+``SCAN_WARMUP_STEPS`` steps run eagerly, on a side stream, as the epoch's
+own steps (cuDNN picks its algorithms and Adam builds its state there),
+then the capture follows; a failed capture or replay raises.  Scan mode on
+CUDA makes the optimizer capturable (learning rate and Adam's step
+counters on the device); the eager loop keeps the host-side form.  On the CPU
+the same step function runs uncaptured through the same buffers.  Only the
+epoch hooks fire in this mode, as in JAX.
+
+``remat`` runs the forward and loss under activation checkpointing; the
+recompute's second BatchNorm update is undone, so the running statistics
+and counters are those of one forward, as ``jax.checkpoint`` leaves them.
 """
 
 from __future__ import annotations
@@ -40,6 +59,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.graph import CapturedGraph
 from ..parallel.dist import get_rank, get_world_size, is_main_process
 from .checkpoint import CheckpointManager, load_checkpoint_file, load_state_dict_strict_false
 from .device import resolve_device
@@ -51,6 +71,10 @@ from .misc import collect_env
 __all__ = ["Trainer", "eval_forward", "masked_mse"]
 
 logger = logging.getLogger("tactilesr_torch")
+
+# eager steps of the scan path before its capture (torch.cuda.graphs asks for
+# a few, for cuDNN's algorithm choice and the optimizer's lazy state)
+SCAN_WARMUP_STEPS = 3
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -77,6 +101,20 @@ def eval_forward(model: torch.nn.Module, *args, **kwargs):
         model.train(was_training)
 
 
+class _ScanBuffers:
+    """The scan path's fixed device storage: one epoch's (idx, mask, lr)
+    rows, the counter that picks a step's row, and each loss's per-step
+    values.  Allocated once; every epoch copies into the same storage, so a
+    captured step reads and writes the addresses its capture saw."""
+
+    def __init__(self, steps: int, batch: int, device: torch.device):
+        self.idx = torch.zeros((steps, batch), dtype=torch.int64, device=device)
+        self.mask = torch.zeros((steps, batch), dtype=torch.float32, device=device)
+        self.lr = torch.zeros(steps, dtype=torch.float32, device=device)
+        self.k = torch.zeros(1, dtype=torch.int64, device=device)
+        self.losses: Dict[str, torch.Tensor] = {}
+
+
 class Trainer:
     """Epoch/iteration-based trainer over device-resident datasets."""
 
@@ -99,12 +137,8 @@ class Trainer:
         grad_accum: int = 1,
         device="cuda",
     ):
-        if scan_epochs:
-            raise NotImplementedError(
-                "scan_epochs is not ported (ROADMAP A5: a CUDA-graph-captured step)")
-        if remat:
-            raise NotImplementedError("remat is not ported (ROADMAP A5: activation checkpointing)")
         assert (max_epochs > 0) ^ (max_iters > 0), "specify either max_epochs or max_iters"
+        assert not (scan_epochs and max_iters > 0), "scan_epochs requires epoch-based training"
         assert grad_accum >= 1, "grad_accum must be >= 1"
         assert batch_size % grad_accum == 0, (
             f"batch_size ({batch_size}) must divide into grad_accum "
@@ -117,6 +151,8 @@ class Trainer:
         self.work_dir = work_dir
         self.batch_size = batch_size
         self.grad_accum = int(grad_accum)
+        self.scan_epochs = scan_epochs
+        self.remat = remat
         self.metric_storage = MetricStorage()
         self._rng = np.random.default_rng(seed)
 
@@ -138,6 +174,10 @@ class Trainer:
             k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
             for k, v in train_arrays.items()
         }
+
+        self._scan: Optional[_ScanBuffers] = None
+        self._graph: Optional[CapturedGraph] = None
+        self._warm_steps = 0
 
         self._hooks: List[HookBase] = []
         self._pending: List[Tuple[int, Dict[str, torch.Tensor], float, float, float]] = []
@@ -231,6 +271,43 @@ class Trainer:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
+    def _bn_state(self) -> List[torch.Tensor]:
+        """The BatchNorm running statistics and counters: what a train-mode
+        forward updates besides its output."""
+        out = []
+        for m in self.model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm) and m.track_running_stats:
+                out += [m.running_mean, m.running_var, m.num_batches_tracked]
+        return out
+
+    def _loss_and_grads(self, batch: Dict[str, torch.Tensor], scale: float = 1.0, params=None):
+        """Forward, loss and backward of one (micro-)batch -> (detached
+        loss_dict, grads).  With ``params`` None, ``loss * scale`` is
+        backpropagated into ``.grad`` (grads None); else the loss's
+        gradients for ``params`` are returned (None for an unused one).
+
+        Under ``remat`` the forward and loss run in
+        ``torch.utils.checkpoint`` (non-reentrant, no RNG state: the step
+        draws no random numbers, and reading the CUDA generator is not
+        allowed in a graph capture); the backward's recompute updates BN a
+        second time, so the state the first forward left is put back."""
+        if self.remat:
+            loss, loss_dict = torch.utils.checkpoint.checkpoint(
+                self.train_cal_loss, batch, use_reentrant=False, preserve_rng_state=False)
+            bn = self._bn_state()
+            kept = [b.clone() for b in bn]
+        else:
+            loss, loss_dict = self.train_cal_loss(batch)
+        grads = None
+        if params is None:
+            (loss if scale == 1.0 else loss * scale).backward()
+        else:
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        if self.remat:
+            for b, v in zip(bn, kept):
+                b.copy_(v)
+        return {k: v.detach() for k, v in loss_dict.items()}, grads
+
     def _step(self, idx: torch.Tensor, mask: torch.Tensor, lr: float,
               weights: np.ndarray) -> Dict[str, torch.Tensor]:
         """One optimizer step, enqueued without a host sync.
@@ -243,9 +320,7 @@ class Trainer:
         nothing (nor updates any BatchNorm statistics)."""
         self.optimizer.zero_grad()
         if self.grad_accum == 1:
-            loss, loss_dict = self.train_cal_loss(self._gather(idx, mask))
-            loss.backward()
-            loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+            loss_dict, _ = self._loss_and_grads(self._gather(idx, mask))
         else:
             wtot = float(weights.sum())
             idx_m = idx.view(self.grad_accum, -1)
@@ -255,13 +330,141 @@ class Trainer:
                 if w == 0:
                     continue
                 scale = float(w) / wtot
-                loss, ld = self.train_cal_loss(self._gather(idx_m[k], mask_m[k]))
-                (loss * scale).backward()
+                ld, _ = self._loss_and_grads(self._gather(idx_m[k], mask_m[k]), scale)
                 for name, v in ld.items():
-                    loss_dict[name] = loss_dict.get(name, 0.0) + v.detach() * scale
+                    loss_dict[name] = loss_dict.get(name, 0.0) + v * scale
         self.optimizer.step(lr)
         self.step += 1
         return loss_dict
+
+    def _accumulate_on_device(self, idx: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``grad_accum`` K > 1 with the weights computed from the mask on
+        the device, as the JAX step's inner scan does: a graph cannot skip
+        an all-padded micro-batch on the host, so it selects instead.  Each
+        micro-batch's gradients enter the sum as ``where(w > 0, w g, 0)``
+        (a loss may be NaN on padding, and NaN * 0 stays NaN), and BN's
+        state goes back to its value before the micro-batch where w = 0.
+        The sum over w is then divided out, and ``.grad`` set from it."""
+        K = self.grad_accum
+        idx_m, mask_m = idx.view(K, -1), mask.view(K, -1)
+        w = mask_m.sum(dim=1)
+        wtot = w.sum()
+        params = self.optimizer.params
+        gsum: List[Optional[torch.Tensor]] = [None] * len(params)
+        bn = self._bn_state()
+        loss_dict: Dict[str, torch.Tensor] = {}
+        for k in range(K):
+            keep = w[k] > 0
+            before = [b.clone() for b in bn]
+            ld, grads = self._loss_and_grads(self._gather(idx_m[k], mask_m[k]), params=params)
+            for b, old in zip(bn, before):
+                b.copy_(torch.where(keep, b, old))
+            for i, g in enumerate(grads):
+                if g is not None:
+                    g = torch.where(keep, w[k] * g.float(), 0.0)
+                    gsum[i] = g if gsum[i] is None else gsum[i].add_(g)
+            for name, v in ld.items():
+                v = torch.where(keep, w[k] * v.float(), 0.0)
+                loss_dict[name] = v if name not in loss_dict else loss_dict[name] + v
+        for p, g in zip(params, gsum):
+            if g is not None:
+                p.grad = (g / wtot).to(p.dtype)
+        return {name: v / wtot for name, v in loss_dict.items()}
+
+    def _scan_step(self) -> None:
+        """One optimizer step of the scan path, all on the device: the row
+        at the step counter, the step, its losses into their per-step
+        buffers, the counter advanced.  A CUDA graph captures exactly this;
+        on the CPU it runs as it is."""
+        s = self._scan
+        idx = s.idx.index_select(0, s.k)[0]
+        mask = s.mask.index_select(0, s.k)[0]
+        self.optimizer.zero_grad()
+        if self.grad_accum == 1:
+            loss_dict, _ = self._loss_and_grads(self._gather(idx, mask))
+        else:
+            loss_dict = self._accumulate_on_device(idx, mask)
+        self.optimizer.step(s.lr.index_select(0, s.k)[0])
+        for name, v in loss_dict.items():
+            if name not in s.losses:
+                s.losses[name] = torch.zeros(self.epoch_len, dtype=torch.float32, device=self.device)
+            s.losses[name].index_copy_(0, s.k, v.float().view(1))
+        s.k.add_(1)
+
+    def _scan_one(self) -> None:
+        """Run the next step of the scan path: uncaptured on the CPU; on
+        CUDA eagerly on a side stream for the first ``SCAN_WARMUP_STEPS``,
+        then captured once and replayed from then on."""
+        if self.device.type != "cuda":
+            self._scan_step()
+        elif self._graph is not None:
+            self._graph.replay()
+        elif self._warm_steps < SCAN_WARMUP_STEPS:
+            self._warm_steps += 1
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self._scan_step()
+            main.wait_stream(side)
+        else:
+            graph = CapturedGraph()
+            self.optimizer.zero_grad()
+            with graph.capture():
+                self._scan_step()
+            self._graph = graph
+            logger.info("Captured the train step in a CUDA graph (kernel launches per replay: %s)",
+                        {k: n for k, n in graph.per_replay.items() if n})
+            self._scan_one()
+
+    def _epoch_lrs(self, steps: int) -> np.ndarray:
+        """Per-step learning rates of the coming epoch, advancing the real
+        schedule as per-iteration training would (iter_update per step)."""
+        lrs = np.empty(steps, np.float32)
+        for k in range(steps):
+            lrs[k] = self.lr_schedule.get_lr()
+            self.lr_schedule.iter_update()
+        return lrs
+
+    def train_one_epoch_scan(self) -> None:
+        """One epoch of the scan path: its rows into the fixed buffers,
+        ``epoch_len`` steps, one fetch of the losses, then each step logged
+        as the JAX trainer logs it (``iter_time`` the epoch's time over its
+        steps, ``data_time`` 0)."""
+        epoch_start = time.perf_counter()
+        pairs = list(self._epoch_batches())
+        idxs = np.stack([p[0] for p in pairs]).astype(np.int64)
+        masks = np.stack([p[1] for p in pairs])
+        steps = idxs.shape[0]
+        base_iter = self.cur_iter
+        lrs = self._epoch_lrs(steps)
+        if self._scan is None:
+            self._scan = _ScanBuffers(self.epoch_len, self.batch_size, self.device)
+        s = self._scan
+        s.idx.copy_(torch.from_numpy(idxs))
+        s.mask.copy_(torch.from_numpy(masks))
+        s.lr.copy_(torch.from_numpy(lrs))
+        s.k.zero_()
+        for _ in range(steps):
+            self._scan_one()
+            self.step += 1
+        fetched = {name: buf.cpu().tolist() for name, buf in s.losses.items()}
+        per_step = (time.perf_counter() - epoch_start) / steps
+        for k in range(steps):
+            it = base_iter + k
+            metrics = {name: vals[k] for name, vals in fetched.items()}
+            total = sum(metrics.values())
+            if not np.isfinite(total):
+                raise FloatingPointError(
+                    f"Loss became infinite or NaN at iteration={it}! loss_dict={metrics}."
+                )
+            if is_main_process():
+                self.log(it, lr=float(lrs[k]), smooth=False)
+                self.log(it, data_time=0.0)
+                self.log(it, iter_time=per_step)
+                self.log(it, total_loss=total)
+                if len(metrics) > 1:
+                    self.log(it, **metrics)
 
     def train_one_iter(self, idx: np.ndarray, mask: np.ndarray) -> None:
         iter_start = time.perf_counter()
@@ -305,8 +508,11 @@ class Trainer:
         else:
             self.load_checkpoint(auto_resume=auto_resume)
 
-        logger.info("Start training from iteration %d", self.start_iter)
         self.model.train()
+        if self.scan_epochs:
+            self._train_scan()
+            return
+        logger.info("Start training from iteration %d", self.start_iter)
         self._call_hooks("before_train")
         epoch_iter = None
         for self.cur_iter in range(self.start_iter, self.max_iters):
@@ -327,6 +533,25 @@ class Trainer:
                 self.flush_metrics()
                 self._call_hooks("after_epoch")
         self.flush_metrics()
+        self._call_hooks("after_train")
+
+    def _train_scan(self) -> None:
+        """The epoch loop of the scan path (the JAX trainer's epoch-scan
+        branch): only the epoch hooks fire, and a resume must land on an
+        epoch boundary."""
+        assert self.train_by_epoch, "scan_epochs requires epoch-based training"
+        logger.info("Start training (epoch-scan mode) from iteration %d", self.start_iter)
+        assert self.start_iter % self.epoch_len == 0, (
+            "epoch-scan resume must land on an epoch boundary")
+        if self.device.type == "cuda" and not self.optimizer.capturable:
+            self.optimizer.make_capturable()
+        self._call_hooks("before_train")
+        for epoch in range(self.start_iter // self.epoch_len, self.max_epochs):
+            self.cur_iter = epoch * self.epoch_len
+            self._call_hooks("before_epoch")
+            self.train_one_epoch_scan()
+            self.cur_iter = (epoch + 1) * self.epoch_len - 1
+            self._call_hooks("after_epoch")
         self._call_hooks("after_train")
 
     def _epoch_batches(self):
@@ -382,6 +607,8 @@ class Trainer:
         if unexpected:
             logger.warning("Unexpected keys when loading model weights:\n%s", unexpected)
         self.optimizer.load_state_dict(bundle["optimizer"])
+        # the optimizer's state tensors are new: a captured step is captured again
+        self._graph, self._warm_steps = None, 0
         self.step = int(bundle.get("step", self.start_iter))
         self.metric_storage.load_state_dict(bundle["metric_storage"])
         self.lr_schedule.load_state_dict(bundle["lr_scheduler"])

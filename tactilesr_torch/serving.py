@@ -6,7 +6,10 @@ layer eval forward instead), keeps the weights on the device, and streams
 (N, C, 4, 4) readings to (N, 1, 4s, 4s) contact-pressure maps.  Requests are
 padded up to a fixed set of batch buckets, and larger ones are split into
 chunks of the largest bucket, so the device only ever sees those shapes.
-Compute runs in bf16 by default; the output is f32.
+Compute runs in bf16 by default; the output is f32.  ``model_arch`` picks
+the network, as the training config's key does: ``TactileSR`` (STSR/MTSR,
+the default) or ``TactileSRCNN`` (single-frame; ``pattern_layers`` is then
+its MSRB count).
 
     python -m tactilesr_torch.serving --checkpoint x.pth --input frames.npz --output sr.npz
 """
@@ -19,17 +22,23 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .models.inference import fold_inference_params, tactile_sr_infer
-from .models.tactile_sr import TactileSR
+from .models.inference import (
+    fold_inference_params,
+    fold_inference_params_cnn,
+    tactile_sr_cnn_infer,
+    tactile_sr_infer,
+)
+from .models.tactile_sr import TactileSR, TactileSRCNN
 from .runtime.checkpoint import load_checkpoint_file
 from .runtime.device import resolve_device
 
-__all__ = ["SRPredictor", "DEFAULT_BUCKETS"]
+__all__ = ["SRPredictor", "DEFAULT_BUCKETS", "MODEL_ARCHS"]
 
 logger = logging.getLogger("tactilesr_torch")
 
 DEFAULT_BUCKETS = (1, 8, 64, 256, 1024)
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+MODEL_ARCHS = ("TactileSR", "TactileSRCNN")
 
 
 def _spec(tensors: dict) -> dict:
@@ -38,7 +47,7 @@ def _spec(tensors: dict) -> dict:
 
 
 class SRPredictor:
-    """TactileSR inference with batch bucketing on one device."""
+    """TactileSR or TactileSRCNN inference with batch bucketing on one device."""
 
     def __init__(
         self,
@@ -52,9 +61,15 @@ class SRPredictor:
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         fused: bool = True,
         device="cuda",
+        model_arch: str = "TactileSR",
     ):
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {compute_dtype!r}")
+        if model_arch not in MODEL_ARCHS:
+            raise ValueError(f"model_arch must be one of {MODEL_ARCHS}, got {model_arch!r}")
+        if model_arch == "TactileSRCNN" and seqs_cnt != 1:
+            raise ValueError(f"TactileSRCNN is single-frame; got seqs_cnt={seqs_cnt}")
+        self.model_arch = model_arch
         self.device = resolve_device(device)
         self.dtype = COMPUTE_DTYPES[compute_dtype]
         self.in_channels = seqs_cnt * axis_cnt
@@ -70,17 +85,25 @@ class SRPredictor:
 
     def _build(self, state_dict: dict):
         """The serving state for one checkpoint: folded tensors (fused) or an
-        eval-mode TactileSR (unfused), on the device."""
+        eval-mode model of ``model_arch`` (unfused), on the device."""
+        cnn = self.model_arch == "TactileSRCNN"
+        if self.fused and cnn:
+            return fold_inference_params_cnn(state_dict, msrb_cnt=self._pattern_layers,
+                                             dtype=self.dtype, device=self.device)
         if self.fused:
             return fold_inference_params(
                 state_dict, seqs_cnt=self._arch["seqs_cnt"],
                 pattern_layers=self._pattern_layers, force_layers=self._force_layers,
                 dtype=self.dtype, device=self.device,
             )
-        model = TactileSR(
-            pattern_feature_extra_layer_cnt=self._pattern_layers,
-            force_feature_extra_layer_cnt=self._force_layers, dtype=self.dtype, **self._arch,
-        )
+        if cnn:
+            model = TactileSRCNN(scale_factor=self._arch["scale_factor"], msrb_cnt=self._pattern_layers,
+                                 axis_cnt=self._arch["axis_cnt"], dtype=self.dtype)
+        else:
+            model = TactileSR(
+                pattern_feature_extra_layer_cnt=self._pattern_layers,
+                force_feature_extra_layer_cnt=self._force_layers, dtype=self.dtype, **self._arch,
+            )
         try:
             model.load_state_dict(state_dict, strict=True)
         except RuntimeError as e:  # missing, unexpected or mis-shaped keys
@@ -97,8 +120,8 @@ class SRPredictor:
         except KeyError as e:
             raise KeyError(
                 f"checkpoint {checkpoint_path!r} does not fit the serving architecture "
-                f"(seqs_cnt={self._arch['seqs_cnt']}, pattern_layers={self._pattern_layers}, "
-                f"force_layers={self._force_layers}): {e}"
+                f"(model_arch={self.model_arch}, seqs_cnt={self._arch['seqs_cnt']}, "
+                f"pattern_layers={self._pattern_layers}, force_layers={self._force_layers}): {e}"
             ) from e
         spec = _spec(new if self.fused else new.state_dict())
         if self._weights is not None and spec != self._spec:
@@ -117,6 +140,9 @@ class SRPredictor:
 
     @torch.no_grad()
     def _forward(self, w, x: torch.Tensor) -> torch.Tensor:
+        if self.fused and self.model_arch == "TactileSRCNN":
+            return tactile_sr_cnn_infer(w, x, scale_factor=self._arch["scale_factor"],
+                                        msrb_cnt=self._pattern_layers)
         if self.fused:
             return tactile_sr_infer(
                 w, x, pattern_layers=self._pattern_layers, force_layers=self._force_layers,
@@ -178,6 +204,8 @@ def _cli(argv=None):
     p.add_argument("--pattern-layers", type=int, default=6)
     p.add_argument("--force-layers", type=int, default=1)
     p.add_argument("--compute-dtype", default="bfloat16", choices=sorted(COMPUTE_DTYPES))
+    p.add_argument("--model-arch", default="TactileSR", choices=MODEL_ARCHS,
+                   help="same knob as the training config's model_arch")
     p.add_argument("--no-fused", action="store_true",
                    help="serve the layer-by-layer eval forward instead of the fused graph")
     p.add_argument("--device", default="cuda")
@@ -189,6 +217,7 @@ def _cli(argv=None):
         args.checkpoint, scale_factor=args.scale_factor, seqs_cnt=args.seqs_cnt,
         pattern_layers=args.pattern_layers, force_layers=args.force_layers,
         compute_dtype=args.compute_dtype, fused=not args.no_fused, device=args.device,
+        model_arch=args.model_arch,
     )
     pred.warmup()
     t0 = time.perf_counter()

@@ -18,7 +18,9 @@ and global SSIM, averaged over the valid rows of each test batch and then
 over batches, and MSE per batch; an inference hook renders an LR/HR/SR PNG
 per epoch; the seqs variant warm-starts its trunk from the single-frame
 checkpoint and gets no warmup unless ``seqs_use_warmup``.  A dead-head
-detector watches for the born-dead final ReLU head.
+detector watches for the born-dead final ReLU head.  ``model_arch:
+TactileSRCNN`` trains the IROS-2022 baseline through the same recipe
+(single-frame only), and ``scan_epochs``/``remat`` are the trainer's.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from ..config.default import tactileSeqs_config, tactileSR_config
 from ..data.datasets import TactileSRDataset, TactileSRDatasetSeq
 from ..metrics import batched_psnr, batched_ssim, psnr, ssim
 from ..models.layers import non_negative_kaiming_fan_out_
-from ..models.tactile_sr import TactileSR
+from ..models.tactile_sr import TactileSR, TactileSRCNN
 from ..ops.resize import bilinear_resize_matrix
 from ..parallel import dist
 from ..runtime.checkpoint import load_checkpoint_file
@@ -56,21 +58,33 @@ __all__ = [
     "transfer_trunk_params",
     "main",
     "HEAD_MODULE",
+    "CNN_HEAD_MODULE",
     "TRUNK_PREFIXES",
 ]
 
 logger = logging.getLogger("tactilesr_torch")
 
 HEAD_MODULE = "output_layer.2"  # the final bias-free conv before the last ReLU
+CNN_HEAD_MODULE = "output.0"  # TactileSRCNN's
 TRUNK_PREFIXES = ("patternFeatureExtra_layer.", "forceFeatureExtra_layer.")
 EVAL_CHUNK = 1024  # rows per eval forward; the per-batch grouping is done after
 
 
-def build_model(config) -> TactileSR:
-    """A TactileSR from the config, initialised from ``random_seed``."""
+def build_model(config):
+    """The SR network of the config, initialised from ``random_seed``:
+    ``model_arch`` ``TactileSR`` (the default) or ``TactileSRCNN``, the
+    IROS-2022 single-frame baseline (its 6 MSRBs fixed, as in the JAX
+    package; ``seqsCnt`` must be 1)."""
     arch = config.get("model_arch", "TactileSR")
+    generator = torch.Generator().manual_seed(int(config["random_seed"]))
+    if arch == "TactileSRCNN":
+        if config["seqsCnt"] != 1:  # ValueError (not assert): survives -O
+            raise ValueError(f"TactileSRCNN is single-frame; got seqsCnt={config['seqsCnt']}")
+        return TactileSRCNN(scale_factor=config["scale_factor"], axis_cnt=config["axisCnt"],
+                            dtype=compute_dtype(config), generator=generator,
+                            head_init=config.get("head_init", "reference"))
     if arch != "TactileSR":
-        raise NotImplementedError(f"model_arch={arch!r}: only TactileSR is ported (ROADMAP A2)")
+        raise ValueError(f"model_arch={arch!r}: expected TactileSR or TactileSRCNN")
     return TactileSR(
         scale_factor=config["scale_factor"],
         seqs_cnt=config["seqsCnt"],
@@ -78,7 +92,7 @@ def build_model(config) -> TactileSR:
         pattern_feature_extra_layer_cnt=config["patternFeatureExtraLayerCnt"],
         force_feature_extra_layer_cnt=config["forceFeatureExtraLayerCnt"],
         dtype=compute_dtype(config),
-        generator=torch.Generator().manual_seed(int(config["random_seed"])),
+        generator=generator,
         head_init=config.get("head_init", "reference"),
     )
 
@@ -346,8 +360,9 @@ def transfer_trunk_params(seqs_state: dict, single_bundle: dict) -> dict:
 
 def main(config=None, seqs: bool = False, max_epochs: Optional[int] = None,
          auto_resume: bool = False, hooks: Sequence[HookBase] = ()) -> SRTrainer:
-    """Train TactileSR from ``config`` (STSR; ``seqs=True`` trains the MTSR
-    on the SeqsDataset with the trunk transfer).  ``auto_resume`` continues
+    """Train the SR network of ``config`` (STSR, or TactileSRCNN with
+    ``model_arch``; ``seqs=True`` trains the MTSR on the SeqsDataset with
+    the trunk transfer).  ``auto_resume`` continues
     from ``latest.pth`` in the work dir; ``hooks`` are registered beside the
     recipe's own."""
     config = dict(config or (tactileSeqs_config if seqs else tactileSR_config))
@@ -364,7 +379,11 @@ def main(config=None, seqs: bool = False, max_epochs: Optional[int] = None,
     logger.info("train dataset size: %d", lr_train.shape[0])
     logger.info("test dataset size: %d", lr_test.shape[0])
 
+    cnn = config.get("model_arch", "TactileSR") == "TactileSRCNN"
     if seqs:
+        if cnn:
+            raise ValueError("the MTSR trunk transfer is TactileSR's; model_arch=TactileSRCNN has "
+                             "no pattern or force trunk")
         src = config.get("load_checkpoint_dir")
         if src and os.path.exists(src):
             model.load_state_dict(
@@ -405,6 +424,7 @@ def main(config=None, seqs: bool = False, max_epochs: Optional[int] = None,
     if config.get("dead_head_check", True) and dist.is_main_process():
         probe = lr_test[:, : config["seqsCnt"] * config["axisCnt"]]
         trainer.register_hooks([DeadHeadHook(probe, action=config.get("dead_head_action", "warn"),
+                                             head_module=CNN_HEAD_MODULE if cnn else HEAD_MODULE,
                                              reinit_seed=config["random_seed"])])
     if config.get("inference_test") and dist.is_main_process():  # PNGs write once
         trainer.register_hooks([InferenceHookSR(test_arrays, config)])

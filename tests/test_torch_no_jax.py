@@ -54,11 +54,14 @@ def test_port_imports_nothing_of_jax():
 
 
 def test_port_module_list_covers_the_training_runtime():
+    """The modules of the runtime (scan_epochs, remat and ProfilerHook among
+    them) and of TactileSRCNN are in the list the import check walks."""
     mods = set(_modules())
     for m in ("config.default", "config.parser", "data.loader", "metrics", "parallel.dist",
               "runtime.checkpoint", "runtime.history", "runtime.hooks.builtin",
-              "runtime.hooks.hookbase", "runtime.logger", "runtime.misc", "runtime.optim",
-              "runtime.schedule", "runtime.trainer", "tasks.tpsf_task"):
+              "runtime.hooks.hookbase", "runtime.hooks.profiler", "runtime.logger", "runtime.misc",
+              "runtime.optim", "runtime.schedule", "runtime.trainer", "tasks.tpsf_task", "ops.graph",
+              "models.blocks", "models.tactile_sr", "models.inference", "compat.from_jax"):
         assert f"tactilesr_torch.{m}" in mods, m
 
 
@@ -108,3 +111,19 @@ def test_chip_smoke_fails_without_gpu():
     proc = _run("import runpy; runpy.run_path('chip_smoke.py', run_name='__main__')")
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_cudnn_spread_imports_nothing_of_jax():
+    """cudnn_spread.py (run beside chip_smoke.py on the card) loads chip_smoke
+    through runpy only in its main(); without CUDA main() returns 2 at once.
+    Either way no JAX is imported."""
+    code = (
+        "import runpy, sys, torch\n"
+        "g = runpy.run_path('cudnn_spread.py', run_name='cudnn_spread_import_check')\n"
+        "assert torch.cuda.is_available() or g['main']() == 2\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'tactilesr_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr

@@ -521,8 +521,13 @@ def test_entry_defaults_to_cuda_and_refuses_unported_options(tmp_path, sr_data,
         sr_task._cli(argv[2:])  # without --device cpu
     with pytest.raises(RuntimeError, match="cuda"):
         sr_seqs_task._cli(_argv(sr_data, str(tmp_path / "s"), seqs=True)[2:])
-    for flag, value, match in (("--model_arch", "TactileSRCNN", "model_arch"),
-                               ("--scan_epochs", "true", "scan_epochs"),
-                               ("--data_parallel", "4", "data_parallel")):
-        with pytest.raises(NotImplementedError, match=match):
-            sr_task._cli(argv + [flag, value])
+    with pytest.raises(NotImplementedError, match="data_parallel"):
+        sr_task._cli(argv + ["--data_parallel", "4"])
+    with pytest.raises(ValueError, match="single-frame"):  # the MTSR config, seqsCnt 7
+        sr_seqs_task._cli(_argv(sr_data, str(tmp_path / "s"), seqs=True)
+                          + ["--model_arch", "TactileSRCNN"])
+    # scan_epochs and the CNN train (one epoch, 2 steps): the CNN in scan mode
+    t = sr_task._cli(_argv(sr_data, str(tmp_path / "cnn")) + ["--model_arch", "TactileSRCNN",
+                                                                 "--scan_epochs", "true"])
+    assert type(t.model).__name__ == "TactileSRCNN" and t.scan_epochs and t.step == 2
+    assert np.isfinite(_losses(t)).all() and np.isfinite(t.metric_storage["test_PSNR"].latest)

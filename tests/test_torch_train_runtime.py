@@ -327,10 +327,23 @@ def test_trainer_nan_loss_raises_at_flush(tmp_path):
 
 
 def test_trainer_refuses_unported_modes(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        _lin_trainer(tmp_path, scan_epochs=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        _lin_trainer(tmp_path, remat=True)
+    """scan_epochs and remat are ported: each trains the linear problem
+    along the eager trajectory (losses rtol 1e-6).  Still refused: scan
+    mode with iteration-based training, and a batch that does not split
+    into grad_accum micro-batches."""
+    torch.manual_seed(0)  # the Linear's init
+    ref = _lin_trainer(tmp_path / "ref")
+    ref.train(auto_resume=False)
+    want = ref.metric_storage["total_loss"].state_dict()["values"]
+    for name, kw in (("scan", {"scan_epochs": True}), ("remat", {"remat": True})):
+        torch.manual_seed(0)
+        t = _lin_trainer(tmp_path / name, **kw)
+        t.train(auto_resume=False)
+        assert t.step == 6
+        np.testing.assert_allclose(t.metric_storage["total_loss"].state_dict()["values"], want,
+                                   rtol=1e-6)
+    with pytest.raises(AssertionError, match="scan_epochs requires epoch"):
+        _lin_trainer(tmp_path, max_epochs=0, max_iters=4, scan_epochs=True)
     with pytest.raises(AssertionError, match="grad_accum"):
         _lin_trainer(tmp_path, grad_accum=3)
 
