@@ -7,7 +7,8 @@ Phases (any failure exits non-zero and prints no result line):
 1. build      -- compile tactilesr_torch/ops/cuda/tpsf_kernel.cu with nvcc;
                  print each kernel's registers, spill bytes, static and
                  dynamic shared memory and resident blocks per SM; the
-                 backward must fit 2 blocks per SM and neither kernel spill
+                 backward and the bf16 forward must fit 2 blocks per SM and
+                 no kernel spill
 2. kernel     -- the tPSF physics kernel vs its plain PyTorch version at
                  B in {1, 5, 256, 8192} (TF32 off for the plain version;
                  HR rtol/atol 1e-4, LR rtol 1e-4 / atol 1e-6); the backward
@@ -15,6 +16,11 @@ Phases (any failure exits non-zero and prints no result line):
                  B, with LR and HR cotangents, for abm and depth (rtol 1e-3,
                  atol 1e-6), and with the LR cotangent alone for abm (the
                  training call)
+   kernel_precision -- the bf16 forward kernels (``physics_precision``
+                 default: one tensor-core pass; high: three) vs the plain
+                 version of their precision at the same B, within 1e-3 of the
+                 largest |HR| and |LR|, bitwise repeatable; their deviation
+                 from the f32 kernel (default within JAX's 1e-2 of max|LR|)
 3. training   -- ``generate synthetic`` (3 blobs of 81 taps), then stage 1
                  through its entry (``tasks/tpsf_task.py``) at the recipe's
                  defaults for 2 epochs (7,296 samples, batch 256, bf16 MLP),
@@ -34,6 +40,10 @@ Phases (any failure exits non-zero and prints no result line):
                  1e-4 (one arithmetic), and against the eager run at rtol
                  4e-3 (its host-side Adam rounds otherwise: 1.36e-3
                  measured)
+   training_precision -- the recipe with ``--physics_precision default``,
+                 one eager and one captured epoch: the bf16 kernel at least
+                 once per step (once per replay), the f32 backward exactly
+                 once per step, the f32 forward never; losses finite
 4. generation -- ``generate single --sample-cnt 32 --batch 256`` from the
                  checkpoint that training wrote (2,688 train, 384 validation
                  and 384 test samples); the kernel must launch 11 + 2 + 2
@@ -70,6 +80,15 @@ Phases (any failure exits non-zero and prints no result line):
                  MTSR (seqsCnt 7, 21 steps at batch 32) through
                  ``tasks/sr_seqs_task.py``, warm-started from the STSR
                  checkpoint with its trunk bit for bit
+   generation_precision -- ``generate single --physics-precision default``
+                 (15 bf16 launches, none of the f32 kernel; labels within
+                 1e-2 of the f32 labels, the test split within 1e-3 of the
+                 plain bf16 physics), ``--use-pallas false`` (no launch, the
+                 f32 labels) and ``generate seqs --physics-precision high``
+                 (5 three-pass launches; HR within 1e-4 of f32)
+   generation_breakdown -- ``generate single`` split into model load, raw
+                 load and preprocessing (native C++, then numpy), physics
+                 and file writes (host clock); the native path must run
 7. serving    -- both trained checkpoints served by SRPredictor (bf16,
                  fused) against their own f32 eval forward; a seeded
                  full-width STSR (perturbed BN stats) served for three
@@ -87,6 +106,10 @@ Phases (any failure exits non-zero and prints no result line):
                  then (captured_times) the captured STSR, stage-1 and
                  TactileSRCNN steps (replays, CUDA events) beside the eager
                  ones: ms, device ops, host launch calls, busy share, MFU
+                 (the stage-1 step at ``physics_precision`` default too);
+                 both bf16 kernels at B=256 and 8192 beside the f32 one,
+                 their plain versions and their bounds (bytes, or bf16
+                 tensor-core operations)
 
 Each phase prints its seconds.  The second-to-last line is the per-kernel JSON record, the line before it
 the card's name and power limit, and the last line
@@ -277,6 +300,8 @@ def phase_build():
               f"{name} spills: ptxas {p}, runtime {k}")
     check(info["tpsf_physics_bwd"]["blocks_per_sm"] >= 2,
           f"the backward fits {info['tpsf_physics_bwd']['blocks_per_sm']} blocks per SM (at least 2)")
+    check(info["tpsf_physics_bf16"]["blocks_per_sm"] >= 2,
+          f"the bf16 forward fits {info['tpsf_physics_bf16']['blocks_per_sm']} blocks per SM (at least 2)")
     return info
 
 
@@ -494,6 +519,245 @@ def phase_generation(work, dev, raw, ckpt):
     _plain_physics_check(ckpt, dev, lr, depth, hr, deg)
     log("[generation] test split matches the plain physics (HR 1e-4, LR 1e-6) ok")
     return launches, lr, out_dir
+
+
+# --------------------------------------------------------- the bf16 physics (physics_precision)
+# bf16 kernels vs the plain version of their precision, of the largest |HR|
+# and |LR|: both round T = A D to bf16 as the next product's operand after
+# f32 sums taken in other orders, so an element on a rounding boundary can
+# round to neighbouring bf16 values
+PHYS_BF16_REL = 1e-3
+# physics_precision default vs f32, of the largest |LR|: the JAX package's
+# envelope (tests/test_pallas_kernels.py:66-75)
+PHYS_BF16_F32_ENVELOPE = 1e-2
+BF16_KERNELS = {"default": "tpsf_physics_bf16", "high": "tpsf_physics_bf16x3"}
+BF16_PASSES = {"default": 1, "high": 3}
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def tpsf_bf16_bound_ms(b, passes):
+    """Least time for B samples of a bf16 kernel: the banded products and
+    the degradation (``tpsf_bound_ms``'s count) ``passes`` times over the
+    bf16 dense peak, against the same bytes as the f32 kernel's."""
+    band = sum(min(99, i + 49) - max(0, i - 49) + 1 for i in range(100))  # 7,450 taps of A
+    flops = passes * (2 * 2 * band * 100 + 2 * (4 * 100 * 100 + 4 * 4 * 100))
+    nbytes = 4 * (100 * 100 + 3 + 100 * 100 + 16)
+    t_ops = b * flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = b * nbytes / PEAK_HBM_BPS * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_kernel_precision(dev):
+    """Each bf16 kernel against the plain version of its precision (TF32
+    off) at B in KERNEL_BATCHES, within PHYS_BF16_REL, bitwise repeatable, the
+    all-zero map zero; its deviation from the f32 kernel (``default`` within
+    PHYS_BF16_F32_ENVELOPE of max|LR|).  Returns the max abs errors and the
+    deviations at B=8192."""
+    errs, devs = {}, {}
+    for prec, name in BF16_KERNELS.items():
+        for b in KERNEL_BATCHES:
+            # at B=1 the last (all-zero) map would be the only one: take a contact map
+            depth, abm = physics_inputs(b + 1, dev, seed=b) if b == 1 else physics_inputs(b, dev, seed=b)
+            depth, abm = depth[:b].contiguous(), abm[:b].contiguous()
+            with f32_matmul():
+                hr_p, lr_p = physics_plain(depth, abm, prec)
+            hr_k, lr_k = tcuda.tpsf_physics(depth, abm, prec)
+            hr_f, lr_f = tcuda.tpsf_physics(depth, abm)
+            hr_2, lr_2 = tcuda.tpsf_physics(depth, abm, prec)
+            torch.cuda.synchronize()
+            e_hr, e_lr = _rel(hr_k, hr_p), _rel(lr_k, lr_p)
+            d_hr, d_lr = _rel(hr_k, hr_f), _rel(lr_k, lr_f)
+            check(max(e_hr, e_lr) < PHYS_BF16_REL,
+                  f"{name} B={b} vs its plain version: HR {e_hr:.3e}, LR {e_lr:.3e} (limit {PHYS_BF16_REL})")
+            check(torch.equal(hr_2, hr_k) and torch.equal(lr_2, lr_k), f"{name} B={b} not repeatable")
+            check(b == 1 or (bool(torch.all(hr_k[-1] == 0)) and bool(torch.all(lr_k[-1] == 0))),
+                  "all-zero depth must give all-zero HR and LR")
+            check(prec != "default" or d_lr < PHYS_BF16_F32_ENVELOPE,
+                  f"{name} B={b} LR {d_lr:.3e} of max|LR| from f32 (envelope {PHYS_BF16_F32_ENVELOPE})")
+            errs[name] = max(errs.get(name, 0.0), float((hr_k - hr_p).abs().max()),
+                             float((lr_k - lr_p).abs().max()))
+            devs[name] = dict(hr=d_hr, lr=d_lr)
+            log(f"[kernel_precision] {name} B={b}: vs plain {prec} HR {e_hr:.3e} LR {e_lr:.3e} of "
+                f"the largest (limit {PHYS_BF16_REL}); vs the f32 kernel HR {d_hr:.3e} LR {d_lr:.3e}; "
+                "repeatable ok")
+    return errs, devs
+
+
+def phase_training_precision(work, raw):
+    """Stage 1 through its entry with ``--physics_precision default`` at the
+    recipe's defaults, one eager epoch and one captured (``--scan_epochs
+    true``): the bf16 kernel at least once per step, the f32 backward
+    exactly once, the f32 forward never; the graph holds one bf16 launch
+    per replay; losses and the eval metric finite.  Returns
+    {mode: (trainer, launches, samples/s)}."""
+    runs = {}
+    for mode, extra in (("eager", []), ("captured", ["--scan_epochs", "true"])):
+        argv = ["--dataset_dir", raw, "--save_dir", os.path.join(work, f"tpsf_default_{mode}"),
+                "--epochs", "1", "--inference_test", "false", "--physics_precision", "default", *extra]
+        clock = EpochClock()
+        tcuda.reset_launch_counts()
+        trainer = tpsf_task._cli(argv, hooks=[clock])
+        torch.cuda.synchronize()
+        launches = dict(tcuda.launch_counts)
+        steps = trainer.step
+        check(trainer.model.physics_precision == "default" and trainer.model.use_kernel == "auto",
+              f"the model runs {trainer.model.physics_precision} / {trainer.model.use_kernel}")
+        check(steps == trainer.epoch_len == 29, f"{steps} steps in an epoch of {trainer.epoch_len}")
+        check(launches["tpsf_physics_bf16"] >= steps and launches["tpsf_physics_fused"] >= steps,
+              f"{launches} in {steps} {mode} steps")
+        check(launches["tpsf_physics_bwd"] == steps, f"tpsf_physics_bwd: {launches} in {steps} steps")
+        check(launches["tpsf_physics"] == 0 and launches["tpsf_physics_bf16x3"] == 0,
+              f"another precision's kernel ran: {launches}")
+        if mode == "captured":
+            per = trainer._graph.per_replay if trainer._graph is not None else {}
+            check(per.get("tpsf_physics_bf16") == 1 and per.get("tpsf_physics_bwd") == 1,
+                  f"the stage-1 graph records {per}")
+        losses = trainer.metric_storage["total_loss"]
+        check(len(losses) == steps and np.isfinite(_losses(trainer)).all(),
+              f"{mode} losses: {len(losses)} logged, {_losses(trainer)}")
+        eval_mse = trainer.metric_storage["Eval Metric"].latest
+        check(np.isfinite(eval_mse), f"eval mse_loss_ave {eval_mse}")
+        sps = trainer.n_train / clock.seconds[-1]
+        log(f"[training_precision] {mode}: {steps} steps at physics_precision default, launches "
+            f"{launches}; losses finite (mean {losses.global_avg:.6g}, last {losses.latest:.6g}), "
+            f"eval mse {eval_mse:.6g}; epoch {clock.seconds[-1]:.3f} s = {sps:.1f} samples/s ok")
+        runs[mode] = (trainer, launches, sps)
+    return runs
+
+
+def _split_arrays(out_dir, split, suffix=""):
+    with np.load(os.path.join(out_dir, f"SRdataset_{split}{suffix}.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def phase_generation_precision(work, dev, raw, ckpt, f32_dir, f32_seqs_dir):
+    """``generate single --physics-precision default`` (15 launches of the
+    bf16 kernel, none of the f32 one; labels within PHYS_BF16_F32_ENVELOPE of the
+    f32 labels, the test split within PHYS_BF16_REL of the plain bf16 physics),
+    ``--use-pallas false`` (no kernel launch, the f32 labels) and
+    ``generate seqs --physics-precision high`` (5 launches of the
+    three-pass kernel).  Returns {path: launches} and the deviations."""
+    base = ["--tpsf-checkpoint", ckpt, "--raw-dir", raw, "--sample-cnt",
+            str(tPSFNet_config["sample_cnt"]), "--batch", str(MAIN_BATCH)]
+    want = sum(-(-n // MAIN_BATCH) for n in GEN_SPLITS.values())
+    by_path, devs = {}, {}
+    for path, argv, kernel, n_launch in (
+        ("generation_precision", ["single", "--physics-precision", "default"], "tpsf_physics_bf16", want),
+        ("generation_precision_off", ["single", "--physics-precision", "default", "--use-pallas",
+                                      "false"], None, 0),
+        ("generation_seqs_high", ["seqs", "--physics-precision", "high", "--n-contacts", "3",
+                                  "--n-translations", "9"], "tpsf_physics_bf16x3", 5),
+    ):
+        out_dir = os.path.join(work, path)
+        tcuda.reset_launch_counts()
+        generate._cli(argv + base + ["--out-dir", out_dir])
+        torch.cuda.synchronize()
+        launches = by_path[path] = dict(tcuda.launch_counts)
+        others = {k: n for k, n in launches.items() if k not in (kernel, "tpsf_physics_fused") and n}
+        check(not others, f"{path} launched {others}")
+        check(kernel is None or launches[kernel] == launches["tpsf_physics_fused"] == n_launch,
+              f"{path}: {launches}, expected {n_launch} of {kernel}")
+        check(kernel is not None or not any(launches.values()), f"{path} launched {launches}")
+        splits = (("train", "_32"), ("validation", "_32"), ("test", "_32")) if argv[0] == "seqs" else \
+            tuple((s, "") for s in GEN_SPLITS)
+        worst = dict(hr=0.0, lr=0.0)
+        for split, suffix in splits:
+            got = _split_arrays(out_dir, split, suffix)
+            ref = _split_arrays(f32_seqs_dir if argv[0] == "seqs" else f32_dir, split, suffix)
+            check(sorted(got) == sorted(ref), f"{path}/{split} keys {sorted(got)}")
+            check(np.array_equal(got["LR"], ref["LR"]) and np.array_equal(got["depth"], ref["depth"]),
+                  f"{path}/{split}: the inputs differ from the f32 run's")
+            for k in got:
+                check(np.isfinite(got[k]).all(), f"{path}/{split}/{k} has non-finite values")
+            hr_t, hr_r = torch.from_numpy(got["HR"]), torch.from_numpy(ref["HR"])
+            if kernel is None:  # --use-pallas false: the f32 physics
+                torch.testing.assert_close(hr_t, hr_r, **HR_TOL)
+                torch.testing.assert_close(torch.from_numpy(got["LR_degrade"]),
+                                           torch.from_numpy(ref["LR_degrade"]), **LR_TOL)
+                continue
+            worst["hr"] = max(worst["hr"], _rel(hr_t, hr_r))
+            if "LR_degrade" in got:
+                worst["lr"] = max(worst["lr"], _rel(torch.from_numpy(got["LR_degrade"]),
+                                                    torch.from_numpy(ref["LR_degrade"])))
+        envelope = PHYS_BF16_F32_ENVELOPE if kernel == "tpsf_physics_bf16" else 1e-4
+        check(max(worst.values()) < envelope, f"{path} labels {worst} from f32 (limit {envelope})")
+        devs[path] = worst
+        if kernel == "tpsf_physics_bf16":  # the test split against the plain bf16 physics
+            z = _split_arrays(out_dir, "test")
+            model = generate.load_tpsf(ckpt, physics_precision="default", device=dev, use_pallas="false")
+            with torch.no_grad(), f32_matmul():
+                lr_in = torch.from_numpy(z["LR"]).to(dev)
+                ab = torch.nn.functional.softplus(model.MLP_layer(lr_in).float())
+                hr_p, lr_p = physics_plain(torch.from_numpy(z["depth"][:, 0]).to(dev), ab, "default")
+            e = (_rel(torch.from_numpy(z["HR"][:, 0]), hr_p.cpu()),
+                 _rel(torch.from_numpy(z["LR_degrade"][:, 0]), lr_p.cpu()))
+            check(max(e) < PHYS_BF16_REL, f"{path} test split vs the plain bf16 physics: {e}")
+            devs[path]["vs_plain"] = e
+        log(f"[generation_precision] {path}: launches {launches}; labels vs the f32 run's: "
+            f"{worst if kernel else 'equal at HR 1e-4, LR 1e-6'} ok")
+    return by_path, devs
+
+
+def phase_generation_breakdown(work, raw, ckpt):
+    """``generate single`` (f32 and bf16) split into loading the model, raw
+    load and preprocessing, the physics (copies included) and writing the
+    splits (host clock): the native preprocessing (it must have run: its
+    call counts rise) and the numpy one (``TACTILESR_NATIVE=0``)."""
+    from tactilesr_torch import native
+
+    check(native.available(), f"the native preprocessing did not build: {native.build_error}")
+    out = {}
+    for name, env, prec in (("native", "1", "highest"), ("numpy", "0", "highest"),
+                            ("native_default", "1", "default"), ("native_again", "1", "highest")):
+        os.environ["TACTILESR_NATIVE"] = env
+        native.reset_calls()
+        timings = {}
+        t0 = time.perf_counter()
+        generate.generate_single_srdataset(ckpt, raw, os.path.join(work, f"breakdown_{name}"),
+                                           sample_cnt=tPSFNet_config["sample_cnt"], batch=MAIN_BATCH,
+                                           physics_precision=prec, timings=timings)
+        torch.cuda.synchronize()
+        timings["wall"] = time.perf_counter() - t0
+        calls = dict(native.calls)
+        check((env == "1") == (calls["binarize_depth"] > 0 and calls["extract_contact_seqs"] > 0),
+              f"{name}: native calls {calls}")
+        out[name] = dict(timings, native_calls=calls)
+        log(f"[generation_breakdown] {name} ({prec}): " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in timings.items()) + f"; native calls {calls}")
+    os.environ["TACTILESR_NATIVE"] = "1"
+    return out
+
+
+def phase_times_precision(dev):
+    """Both bf16 kernels at B=256 and 8192 beside the f32 kernel in the
+    same phase (CUDA events, alternating), their plain versions and their
+    bounds."""
+    out = {}
+    for prec, name in BF16_KERNELS.items():
+        out[name] = {}
+        for b in (MAIN_BATCH, 8192):
+            depth, abm = physics_inputs(b, dev, seed=100 + b)
+            iters = 200 if b <= 256 else 20
+            k1 = cuda_ms(lambda: tcuda.tpsf_physics(depth, abm, prec), iters)
+            f_ms = cuda_ms(lambda: tcuda.tpsf_physics(depth, abm), iters)
+            k2 = cuda_ms(lambda: tcuda.tpsf_physics(depth, abm, prec), iters)
+
+            def plain():
+                with f32_matmul():
+                    return physics_plain(depth, abm, prec)
+
+            p_ms = cuda_ms(plain, max(5, iters // 4))
+            bound, by = tpsf_bf16_bound_ms(b, BF16_PASSES[prec])
+            k_ms = min(k1, k2)
+            out[name][b] = dict(ms=k_ms, ms_runs=[k1, k2], f32_kernel_ms=f_ms, plain_ms=p_ms,
+                                bound_ms=bound, bound_by=by, bound_share=bound / k_ms)
+            log(f"[times] {name} B={b}: kernel {k1:.4f} / {k2:.4f} ms ({b / k_ms * 1e3:.0f} samples/s), "
+                f"the f32 kernel between them {f_ms:.4f} ms, plain {prec} (TF32 off) {p_ms:.4f} ms, "
+                f"bound {bound:.4f} ms ({by}), {bound / k_ms * 100:.1f}% of the bound")
+    return out
 
 
 def sr_flops_per_frame(scale=10, seqs=1, pattern_layers=6, force_layers=1, hw=None):
@@ -1401,11 +1665,13 @@ def main():
     info = phase("build", phase_build)
     errs = phase("kernel", phase_kernel, dev)
     bwd_errs = phase("kernel_bwd", phase_kernel_bwd, dev)
+    prec_errs, prec_devs = phase("kernel_precision", phase_kernel_precision, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         trainer, raw, ckpt, train_launches, grad_err, epoch_sps = phase("training", phase_training,
                                                                          work, dev)
         tpsf_capt, capt_launches, tpsf_capt_info = phase("training_captured", phase_training_captured,
                                                          work, raw, trainer)
+        prec_runs = phase("training_precision", phase_training_precision, work, raw)
         # the recipe allowed TF32 for f32 matmuls (matmul_precision "default");
         # stage 2 runs in a process of its own, at torch's default
         torch.set_float32_matmul_precision("highest")
@@ -1418,11 +1684,15 @@ def main():
         n_trace_kernels = phase("profiler", phase_profiler, work, dev, sr_dir)
         torch.set_float32_matmul_precision("highest")
         seqs_launches, seqs_dir = phase("generation_seqs", phase_generation_seqs, work, dev, raw, ckpt)
+        gen_prec_launches, gen_prec_devs = phase("generation_precision", phase_generation_precision,
+                                                 work, dev, raw, ckpt, sr_dir, seqs_dir)
+        breakdown = phase("generation_breakdown", phase_generation_breakdown, work, raw, ckpt)
         mtsr, mtsr_ckpt, mtsr_sps = phase("seqs", phase_mtsr_training, work, seqs_dir, stsr_ckpt)
         served = phase("serving_trained", phase_serving_trained, dev, stsr_ckpt, sr_dir, mtsr_ckpt,
                        seqs_dir)
         pred = phase("serving", phase_serving, work, dev, test_lr)
         times, bwd_times = phase("times", phase_times, dev, pred)
+        prec_times = phase("times_precision", phase_times_precision, dev)
         train_t = phase("train_times", phase_train_times, trainer)
         sr_t = phase("sr_times", phase_sr_times, [
             ("STSR", stsr, os.path.join(sr_dir, "SRdataset_test.npz"), 1),
@@ -1430,6 +1700,7 @@ def main():
         capt_t = phase("captured_times", phase_captured_times, [
             ("STSR", None, stsr_capt, 3 * sr_flops_per_frame()[0] * stsr_capt.batch_size),
             ("stage 1", None, tpsf_capt, None),
+            ("stage 1 default", prec_runs["eager"][0], prec_runs["captured"][0], None),
             ("TactileSRCNN", cnn, cnn, 3 * cnn_flops_per_frame() * cnn.batch_size)])
     log(f"[times] SR epochs: STSR {stsr_sps:.1f} samples/s, MTSR {mtsr_sps:.1f} samples/s; "
         f"STSR step {sr_t['STSR']['step_ms']:.4f} ms (MFU {sr_t['STSR']['mfu'] * 100:.2f}%), "
@@ -1444,7 +1715,9 @@ def main():
     smi = nvidia_smi_line()
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s: {phase.seconds}")
     by_path = {"training": train_launches, "training_captured": capt_launches,
-               "generation": gen_launches, "generation_seqs": seqs_launches}
+               "training_precision": prec_runs["eager"][1],
+               "training_precision_captured": prec_runs["captured"][1],
+               "generation": gen_launches, "generation_seqs": seqs_launches, **gen_prec_launches}
     main_t = times[MAIN_BATCH]
     record = {"kernels": [
         {
@@ -1509,7 +1782,35 @@ def main():
             "captured_step_profile": capt_t["stage 1"]["captured"]["step_profile"],
             "captured_epoch_samples_per_s": tpsf_capt_info["epoch_samples_per_s"],
         },
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "tactilesr_torch/ops/cuda/tpsf_kernel.cu",
+            "replaces": f"tactilesr_tpu/ops/pallas/tpsf_kernel.py:162 (precision={prec.upper()})",
+            "launches": sum(p[name] for p in by_path.values()),
+            "launches_by_path": {k: p[name] for k, p in by_path.items()},
+            "max_abs_err": prec_errs[name],
+            "ms": prec_times[name][MAIN_BATCH]["ms"],
+            "plain_ms": prec_times[name][MAIN_BATCH]["plain_ms"],
+            "bound_ms": prec_times[name][MAIN_BATCH]["bound_ms"],
+            "bound_by": prec_times[name][MAIN_BATCH]["bound_by"],
+            "library_ms": None,
+            "bound_share": prec_times[name][MAIN_BATCH]["bound_share"],
+            "blocks_per_sm": info[name]["blocks_per_sm"],
+            "batch": MAIN_BATCH,
+            "f32_kernel_ms": prec_times[name][MAIN_BATCH]["f32_kernel_ms"],
+            "at_b8192": prec_times[name][8192],
+            "deviation_from_f32_b8192": prec_devs[name],
+        }
+        for prec, name in BF16_KERNELS.items()
     ]}
+    for k in record["kernels"]:
+        check(k["launches"] > 0, f"{k['name']} was not launched on the main path: {k['launches_by_path']}")
+    log(f"[times] bf16 physics: labels vs f32 {gen_prec_devs}; generation breakdown {breakdown}; "
+        f"stage 1 default step: eager {capt_t['stage 1 default']['eager']['step_ms']:.4f} ms, captured "
+        f"{capt_t['stage 1 default']['captured']['step_ms']:.4f} ms (f32: eager {train_t['step_ms']:.4f}, "
+        f"captured {capt_t['stage 1']['captured']['step_ms']:.4f})")
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

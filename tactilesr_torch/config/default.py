@@ -12,7 +12,11 @@ The port reads them so:
 - ``use_pallas_physics``: ``auto`` or true runs the physics through the
   CUDA kernel's autograd wrapper on CUDA tensors, false through the plain
   version under autograd (``tasks/tpsf_task.py``);
-- ``physics_precision``: only ``highest`` (f32 FMA) is ported;
+- ``physics_precision``: the products of the physics' forward kernel, all
+  three modes ported: ``highest`` f32 FMA, ``default`` bf16 tensor-core
+  products with f32 sums (one pass), ``high`` three bf16 passes
+  (``ops/psf.py``); ignored, as in JAX, when ``use_pallas_physics`` is
+  false, and the backward is f32 whatever it says;
 - ``scan_epochs``: each epoch as replays of one CUDA-graph-captured train
   step on a GPU (the same step uncaptured on the CPU); ``remat``:
   activation checkpointing of the forward and loss

@@ -16,7 +16,10 @@ labels that the SR networks train on.
 
 Each split runs as batched tPSF physics on the device (the CUDA kernel on
 a GPU), in fixed-size zero-padded chunks, and is saved as a stacked
-``.npz`` (plus the reference's object ``.npy`` on request).
+``.npz`` (plus the reference's object ``.npy`` on request).  As in the JAX
+package, ``--physics-precision`` picks the kernel's products (``highest``
+f32, ``default`` one bf16 pass, ``high`` three) and ``--use-pallas false``
+runs the plain f32 physics on the chosen device instead of the kernel.
 
     python -m tactilesr_torch.data.generate synthetic --out-dir raw/
     python -m tactilesr_torch.data.generate single --tpsf-checkpoint tpsf.pth \\
@@ -27,14 +30,17 @@ a GPU), in fixed-size zero-padded chunks, and is saved as a stacked
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..models.tpsf_net import TPSFNet
+from ..ops.psf import PHYSICS_PRECISIONS, resolve_use_kernel
 from ..runtime.checkpoint import load_checkpoint_file
 from ..runtime.device import resolve_device
 from .datasets import TPSFNetDataset
@@ -51,19 +57,15 @@ SINGLE_SPLITS = {
     "train": [9 * k + i for k in range(2, 9) for i in (0, 6, 7, 8)],
 }
 
-PHYSICS_PRECISIONS = ("highest",)  # f32 FMA, no TF32; the bf16 variant is not ported
-
 
 def load_tpsf(checkpoint_path: str, gama: float = 1.4, physics_precision: str = "highest",
-              device="cuda") -> TPSFNet:
-    """A TPSFNet in eval mode on ``device`` from a port ``.pth`` bundle."""
-    if physics_precision not in PHYSICS_PRECISIONS:
-        raise ValueError(
-            f"physics_precision={physics_precision!r}: only {PHYSICS_PRECISIONS} "
-            "is supported by the port"
-        )
+              device="cuda", use_pallas="auto") -> TPSFNet:
+    """A TPSFNet in eval mode on ``device`` from a port ``.pth`` bundle, its
+    physics at ``physics_precision`` through the kernel (``use_pallas``
+    auto or true) or the plain f32 physics (false).  Typos raise."""
     dev = resolve_device(device)
-    model = TPSFNet(gama=gama)
+    model = TPSFNet(gama=gama, use_kernel=resolve_use_kernel(use_pallas),
+                    physics_precision=physics_precision)
     model.load_state_dict(load_checkpoint_file(checkpoint_path)["model"], strict=True)
     return model.to(dev).eval()
 
@@ -101,6 +103,17 @@ def tpsf_apply_batched(model: TPSFNet, lr: np.ndarray, depth: np.ndarray,
     return result
 
 
+@contextlib.contextmanager
+def _timed(timings: Optional[Dict[str, float]], key: str):
+    """Adds the block's host seconds to ``timings[key]`` (when given)."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if timings is not None:
+            timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
+
+
 def _save_split(out_dir: str, name: str, arrays: Dict[str, np.ndarray], legacy: bool) -> None:
     os.makedirs(out_dir, exist_ok=True)
     np.savez(os.path.join(out_dir, name + ".npz"), **arrays)
@@ -129,17 +142,28 @@ def generate_single_srdataset(
     physics_precision: str = "highest",
     batch: int = 256,
     device="cuda",
+    use_pallas="auto",
+    timings: Optional[Dict[str, float]] = None,
 ) -> Dict[str, str]:
-    """Single-frame SRdataset: {LR, depth, HR, LR_degrade, alphaBeta} per split."""
-    model = load_tpsf(tpsf_checkpoint, gama, physics_precision, device)
+    """Single-frame SRdataset: {LR, depth, HR, LR_degrade, alphaBeta} per split.
+
+    ``timings``, when given, gains the host seconds of loading the model
+    ("load"), the raw preprocessing ("preprocess"), the physics with its
+    copies to and from the device ("physics") and writing the splits
+    ("save")."""
+    with _timed(timings, "load"):
+        model = load_tpsf(tpsf_checkpoint, gama, physics_precision, device, use_pallas)
     paths = {}
     for split, idx in (splits or SINGLE_SPLITS).items():
-        ds = TPSFNetDataset(raw_dataset_dir, sample_cnt=sample_cnt,
-                            is_sample_idx=list(idx), is_aug_data=False)
-        lr, depth = ds.stacked()
-        arrays = tpsf_apply_batched(model, lr, depth, scale_num, batch)
+        with _timed(timings, "preprocess"):
+            ds = TPSFNetDataset(raw_dataset_dir, sample_cnt=sample_cnt,
+                                is_sample_idx=list(idx), is_aug_data=False)
+            lr, depth = ds.stacked()
+        with _timed(timings, "physics"):
+            arrays = tpsf_apply_batched(model, lr, depth, scale_num, batch)
         name = f"SRdataset_{split}"
-        _save_split(out_dir, name, arrays, legacy_npy)
+        with _timed(timings, "save"):
+            _save_split(out_dir, name, arrays, legacy_npy)
         paths[split] = os.path.join(out_dir, name + ".npz")
     return paths
 
@@ -158,9 +182,10 @@ def generate_seqs_srdataset(
     physics_precision: str = "highest",
     batch: int = 256,
     device="cuda",
+    use_pallas="auto",
 ) -> Dict[str, str]:
     """Multi-frame SeqsDataset: {LR (21,4,4), depth (1,100,100), HR} per split."""
-    model = load_tpsf(tpsf_checkpoint, gama, physics_precision, device)
+    model = load_tpsf(tpsf_checkpoint, gama, physics_precision, device, use_pallas)
     ds = TPSFNetDataset(raw_dataset_dir, sample_cnt=sample_cnt,
                         is_sample_idx=list(range(0, n_translations * 9)), is_aug_data=False)
     lr_all, depth_all = ds.stacked()
@@ -227,8 +252,12 @@ def _cli(argv=None):
         pg.add_argument("--scale-num", type=float, default=100.0)
         pg.add_argument("--gama", type=float, default=1.4)
         pg.add_argument("--legacy-npy", action="store_true")
-        pg.add_argument("--physics-precision", default="highest",
-                        help="physics matmul precision; only 'highest' (f32) is supported")
+        pg.add_argument("--use-pallas", default="auto",
+                        help="the physics kernel: auto|true (the kernel on a GPU, its plain "
+                        "version on the CPU) or false (the plain f32 physics, no kernel)")
+        pg.add_argument("--physics-precision", default="highest", choices=PHYSICS_PRECISIONS,
+                        help="the kernel's products: highest (f32), default (one bf16 "
+                        "tensor-core pass, f32 sums) or high (three bf16 passes)")
         pg.add_argument("--batch", type=int, default=256, help="physics batch per launch")
         pg.add_argument("--device", default="cuda")
         if name == "seqs":
@@ -244,7 +273,7 @@ def _cli(argv=None):
         return
     common = dict(sample_cnt=args.sample_cnt, scale_num=args.scale_num, gama=args.gama,
                   legacy_npy=args.legacy_npy, physics_precision=args.physics_precision,
-                  batch=args.batch, device=args.device)
+                  batch=args.batch, device=args.device, use_pallas=args.use_pallas)
     if args.cmd == "single":
         paths = generate_single_srdataset(args.tpsf_checkpoint, args.raw_dir, args.out_dir, **common)
     else:

@@ -15,7 +15,10 @@ parameters, as the JAX package's ``Dense(dtype=...)`` does; the MLP output
 is cast to f32 before the softplus, and the physics always gets f32.  The
 physics runs through the CUDA kernel on a GPU (differentiable through
 ``ops/cuda::tpsf_physics_fused``) and its plain version on the CPU
-(``ops/psf.py``).
+(``ops/psf.py``), its products at ``physics_precision`` (highest, high or
+default; ``ops/psf.py::resolve_physics_precision``), as JAX's
+``TPSFNet.physics_precision``; with ``use_kernel=False`` the physics is the
+plain f32 version whatever ``physics_precision`` says.
 ``gama`` and ``perception_scale`` are stored but unused, as in the reference.
 """
 
@@ -27,7 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.psf import tpsf_forward_physics
+from ..ops.psf import resolve_physics_precision, tpsf_forward_physics
 from .layers import init_weights_
 
 __all__ = ["TPSFNet", "Dense"]
@@ -55,11 +58,13 @@ class TPSFNet(nn.Module):
         use_kernel="auto",
         generator: torch.Generator | None = None,
         dtype: torch.dtype = torch.float32,
+        physics_precision=None,
     ):
         super().__init__()
         self.gama = gama
         self.perception_scale = perception_scale
         self.use_kernel = use_kernel
+        self.physics_precision = resolve_physics_precision(physics_precision)
         self.dtype = dtype
         self.MLP_layer = nn.Sequential(
             nn.Flatten(),
@@ -79,7 +84,8 @@ class TPSFNet(nn.Module):
         alpha_beta = F.softplus(self.MLP_layer(x).float())
         depth2d = depth.reshape(b, depth.shape[-2], depth.shape[-1])
         hr, lr_degrade, psf = tpsf_forward_physics(
-            depth2d, alpha_beta, return_psf=return_psf, use_kernel=self.use_kernel
+            depth2d, alpha_beta, return_psf=return_psf, use_kernel=self.use_kernel,
+            precision=self.physics_precision,
         )
         if psf is not None:
             psf = psf[:, None]

@@ -6,13 +6,18 @@ file, into a shared library whose name carries a hash of the source (so an
 edited source never loads a stale build).  Nothing is built or loaded at
 import time: the CPU tests import this module on machines with no ``nvcc``.
 
-``tpsf_physics`` is the kernel's wrapper.  On a CPU tensor it runs the plain
-PyTorch version (``ops/psf.py::physics_plain``); on a CUDA tensor it
-launches the kernel or raises -- a failed build or launch is never replaced
-by the plain version.  ``launch_counts`` counts kernel launches so that a
-run can show its main path went through the kernel; they are registered
-with ``ops/graph.py``, so a ``CapturedGraph`` that holds launches counts
-them at each replay, not at the capture.
+``tpsf_physics`` is the forward kernels' wrapper.  ``precision`` picks the
+kernel (``ops/psf.py::resolve_physics_precision``): ``highest`` the f32
+kernel, ``default`` the one-pass bf16 tensor-core kernel and ``high`` its
+three-pass form, the port of ``tpsf_physics_pallas_raw`` at
+``precision=DEFAULT`` and ``HIGH``.  On a CPU tensor it runs the plain
+PyTorch version of that precision (``ops/psf.py::physics_plain``); on a
+CUDA tensor it launches the kernel or raises -- a failed build or launch
+is never replaced by the plain version or by another precision's kernel.
+``launch_counts`` counts kernel launches so that a run can show its main
+path went through the kernel; they are registered with ``ops/graph.py``,
+so a ``CapturedGraph`` that holds launches counts them at each replay, not
+at the capture.
 
 ``tpsf_physics_bwd`` is the wrapper of the backward kernel in the same
 source: the vector-Jacobian product of the physics in f32, recomputed from
@@ -25,10 +30,12 @@ shared memory that ptxas printed when it compiled them.
 
 ``tpsf_physics_fused`` makes the kernels trainable: a ``torch.autograd.Function``
 (the port of ``tactilesr_tpu/ops/pallas/tpsf_kernel.py::get_fused``, a
-``jax.custom_vjp``) whose forward is the forward kernel and whose backward is
-the backward kernel.  The JAX package's ``_bwd`` differentiates an XLA
-recompute at f32 HIGHEST inside one jitted program; eager PyTorch would issue
-a hundred small ops for that, so here it is one kernel.
+``jax.custom_vjp``) whose forward is the forward kernel of the chosen
+precision and whose backward is the f32 backward kernel at every
+precision.  The JAX package's ``_bwd`` differentiates an XLA recompute at
+f32 HIGHEST, whatever the forward's precision, inside one jitted program;
+eager PyTorch would issue a hundred small ops for that, so here it is one
+kernel.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ import torch
 from ..graph import register_counters
 from ..psf import (
     C_MASK, C_PSF, DEGRADE_SCALE, DISTURBANCE, HR_SIZE, TAXELS, f32_matmul, physics_plain,
-    physics_vjp_plain,
+    physics_vjp_plain, resolve_physics_precision,
 )
 
 __all__ = [
@@ -69,15 +76,24 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# kernel name -> launches since the last reset
-launch_counts = {"tpsf_physics": 0, "tpsf_physics_fused": 0, "tpsf_physics_bwd": 0}
+# kernel name -> launches since the last reset ("tpsf_physics_fused": the
+# autograd wrapper's forward launches, of any precision)
+launch_counts = {"tpsf_physics": 0, "tpsf_physics_fused": 0, "tpsf_physics_bwd": 0,
+                 "tpsf_physics_bf16": 0, "tpsf_physics_bf16x3": 0}
 
 _lock = threading.Lock()
 _lib = None
 build_log = ""  # nvcc's output of the build this process loaded (ptxas -v)
 
-# kernel names as the C++ source spells them -> their launch-count names
-KERNELS = {"tpsf_physics_kernel": "tpsf_physics", "tpsf_physics_bwd_kernel": "tpsf_physics_bwd"}
+# kernel names as the C++ source spells them -> their launch-count names, in
+# the order of tpsf_kernel_info's ``which``
+KERNELS = {"tpsf_physics_kernel": "tpsf_physics", "tpsf_physics_bwd_kernel": "tpsf_physics_bwd",
+           "tpsf_physics_bf16_kernel": "tpsf_physics_bf16",
+           "tpsf_physics_bf16x3_kernel": "tpsf_physics_bf16x3"}
+
+# physics_precision -> (launch-count name, bf16 passes; 0 for the f32 kernel)
+FORWARD_KERNELS = {"highest": ("tpsf_physics", 0), "default": ("tpsf_physics_bf16", 1),
+                   "high": ("tpsf_physics_bf16x3", 3)}
 
 
 register_counters(launch_counts)
@@ -128,6 +144,12 @@ def _compile(defines: tuple = ()) -> tuple:
         ctypes.c_float, ctypes.c_void_p,
     ]
     lib.tpsf_physics_launch.restype = ctypes.c_int
+    lib.tpsf_physics_bf16_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.tpsf_physics_bf16_launch.restype = ctypes.c_int
     lib.tpsf_physics_bwd_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
@@ -208,14 +230,17 @@ def _f32_aligned(x: torch.Tensor) -> torch.Tensor:
     return x.clone() if x.data_ptr() % 16 else x
 
 
-def tpsf_physics(depth: torch.Tensor, abm: torch.Tensor):
-    """depth (B,100,100), abm (B,3) -> (HR (B,100,100) f32, LR (B,4,4) f32).
+def tpsf_physics(depth: torch.Tensor, abm: torch.Tensor, precision="highest"):
+    """depth (B,100,100), abm (B,3) -> (HR (B,100,100) f32, LR (B,4,4) f32),
+    the products at ``precision`` (highest, high or default).
 
-    CUDA tensors go through the kernel (inputs made contiguous f32); CPU
-    tensors through the plain version."""
+    CUDA tensors go through that precision's kernel (inputs made contiguous
+    f32); CPU tensors through the plain version of the same precision."""
     _check(depth, abm)
+    precision = resolve_physics_precision(precision)
     if not depth.is_cuda:
-        return physics_plain(depth, abm)
+        return physics_plain(depth, abm, precision)
+    name, passes = FORWARD_KERNELS[precision]
     lib = build()
     depth = _f32_aligned(depth)
     abm = abm.to(torch.float32).contiguous()
@@ -226,15 +251,17 @@ def tpsf_physics(depth: torch.Tensor, abm: torch.Tensor):
         return hr, lr
     with torch.cuda.device(depth.device):
         stream = torch.cuda.current_stream(depth.device).cuda_stream
-        err = lib.tpsf_physics_launch(
-            depth.data_ptr(), abm.data_ptr(), hr.data_ptr(), lr.data_ptr(), b,
-            C_PSF, C_MASK, DISTURBANCE, DEGRADE_SCALE, stream,
-        )
+        ptrs = (depth.data_ptr(), abm.data_ptr(), hr.data_ptr(), lr.data_ptr(), b)
+        consts = (C_PSF, C_MASK, DISTURBANCE, DEGRADE_SCALE, stream)
+        if passes:
+            err = lib.tpsf_physics_bf16_launch(*ptrs, passes, *consts)
+        else:
+            err = lib.tpsf_physics_launch(*ptrs, *consts)
     if err != 0:
         raise RuntimeError(
-            f"tpsf_physics kernel launch failed: {lib.tpsf_error_string(err).decode()}"
+            f"{name} kernel launch failed: {lib.tpsf_error_string(err).decode()}"
         )
-    launch_counts["tpsf_physics"] += 1
+    launch_counts[name] += 1
     return hr, lr
 
 
@@ -285,24 +312,24 @@ def tpsf_physics_bwd(depth: torch.Tensor, abm: torch.Tensor, g_hr, g_lr,
 
 
 class TPSFPhysicsFn(torch.autograd.Function):
-    """(depth, abm) -> (HR, LR): the forward kernel, the backward kernel.
+    """(depth, abm, precision) -> (HR, LR): the forward kernel of that
+    precision, the f32 backward kernel.
 
     The backward recomputes the physics from the saved (depth, abm) and
-    never reads the forward's outputs, in f32 whatever the global matmul
-    precision (the JAX backward is pinned to f32 HIGHEST the same way); the
-    contact fixup's second max passes no gradient, as JAX's
-    ``stop_gradient``.  CPU tensors take ``physics_plain`` as the forward
-    and ``physics_vjp_plain`` as the backward.
+    never reads the forward's outputs, in f32 whatever the forward's
+    precision or the global matmul precision (JAX's ``_bwd`` is pinned to
+    f32 HIGHEST the same way), so for a given cotangent the gradient is the
+    same at every precision; the contact fixup's second max passes no
+    gradient, as JAX's ``stop_gradient``.  CPU tensors take
+    ``physics_plain`` as the forward and ``physics_vjp_plain`` as the
+    backward.
     """
 
     @staticmethod
-    def forward(ctx, depth, abm):
-        if depth.is_cuda:
-            hr, lr = tpsf_physics(depth, abm)
-            if depth.shape[0]:  # tpsf_physics launches nothing for B=0
-                launch_counts["tpsf_physics_fused"] += 1
-        else:
-            hr, lr = physics_plain(depth, abm)
+    def forward(ctx, depth, abm, precision="highest"):
+        hr, lr = tpsf_physics(depth, abm, precision)
+        if depth.is_cuda and depth.shape[0]:  # tpsf_physics launches nothing for B=0
+            launch_counts["tpsf_physics_fused"] += 1
         ctx.save_for_backward(depth, abm)
         ctx.set_materialize_grads(False)
         return hr, lr
@@ -310,16 +337,16 @@ class TPSFPhysicsFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_hr, g_lr):
         if g_hr is None and g_lr is None:
-            return None, None
+            return None, None, None
         depth, abm = ctx.saved_tensors
-        need_depth, need_abm = ctx.needs_input_grad
+        need_depth, need_abm = ctx.needs_input_grad[:2]
         g_depth, g_abm = tpsf_physics_bwd(depth, abm, g_hr, g_lr, need_depth, need_abm)
         return (None if g_depth is None else g_depth.to(depth.dtype),
-                None if g_abm is None else g_abm.to(abm.dtype))
+                None if g_abm is None else g_abm.to(abm.dtype), None)
 
 
-def tpsf_physics_fused(depth: torch.Tensor, abm: torch.Tensor):
-    """Differentiable ``tpsf_physics``: the same outputs, with gradients for
-    depth and abm through the backward kernel."""
+def tpsf_physics_fused(depth: torch.Tensor, abm: torch.Tensor, precision="highest"):
+    """Differentiable ``tpsf_physics``: the same outputs at ``precision``,
+    with gradients for depth and abm through the f32 backward kernel."""
     _check(depth, abm)
-    return TPSFPhysicsFn.apply(depth, abm)
+    return TPSFPhysicsFn.apply(depth, abm, precision)

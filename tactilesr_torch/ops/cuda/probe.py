@@ -15,7 +15,9 @@ of the block; the mean block time and the SM clock the two clocks imply;
 how many blocks were in flight on average (summed block time over the
 kernel's span) against how many fit; and how far apart blocks start on one
 SM, as a share of the block time.  The backward runs as training calls it
-(LR cotangent, abm gradient).
+(LR cotangent, abm gradient).  The bf16 forward kernels (``precision``
+default and high) have no band loops on the CUDA cores, so the third
+build's column is left out for them.
 """
 
 from __future__ import annotations
@@ -41,6 +43,11 @@ PHASES = {
         "h2 correlation, pass Q^T", "Q stored, depth copied again", "h1 correlation, dbeta",
     ],
 }
+_BF16_PHASES = [
+    "depth bulk copy, gpad, U, A in bf16", "max, mask bits, D in bf16", "product 1: T = A D",
+    "product 2: HR0, second max", "fixup, sum(HR)", "HR bulk store, V = U HR", "LR",
+]
+PHASES["tpsf_physics_bf16"] = PHASES["tpsf_physics_bf16x3"] = _BF16_PHASES
 
 
 def _inputs(b, dev, seed=0):
@@ -89,6 +96,10 @@ def probe(batches=(256, 8192)):
             return lambda: lb.tpsf_physics_launch(depth.data_ptr(), abm.data_ptr(), hr.data_ptr(),
                                                   lr.data_ptr(), b, *consts)
 
+        def bf16(lb, passes):
+            return lambda: lb.tpsf_physics_bf16_launch(depth.data_ptr(), abm.data_ptr(), hr.data_ptr(),
+                                                       lr.data_ptr(), b, passes, *consts)
+
         def bwd(lb):
             return lambda: lb.tpsf_physics_bwd_launch(depth.data_ptr(), abm.data_ptr(), g_lr.data_ptr(),
                                                       None, g_abm.data_ptr(), None, b, *consts)
@@ -97,6 +108,8 @@ def probe(batches=(256, 8192)):
             "tpsf_physics": (fwd(lib), lambda: tpsf_physics(depth, abm), fwd(no_band)),
             "tpsf_physics_bwd": (bwd(lib), lambda: tpsf_physics_bwd(depth, abm, None, g_lr, need_depth=False),
                                  bwd(no_band)),
+            "tpsf_physics_bf16": (bf16(lib, 1), lambda: tpsf_physics(depth, abm, "default"), None),
+            "tpsf_physics_bf16x3": (bf16(lib, 3), lambda: tpsf_physics(depth, abm, "high"), None),
         }
         iters = 200 if b <= 256 else 20
         for name, (probed, plain, rest) in launches.items():
@@ -104,7 +117,7 @@ def probe(batches=(256, 8192)):
             err = lib.tpsf_set_probe(None)
             plain_ms = _events_ms(plain, iters)
             probe_ms = _events_ms(probed, iters)
-            rest_ms = _events_ms(rest, iters)
+            rest_ms = None if rest is None else _events_ms(rest, iters)
             err = err or lib.tpsf_set_probe(stamps.data_ptr())
             err = err or probed()
             torch.cuda.synchronize()
@@ -125,9 +138,9 @@ def probe(batches=(256, 8192)):
             gaps = torch.cat([t0[sm == k].sort().values.diff() for k in sm.unique()])
             gap_share = float(gaps.median()) / block_ns if len(gaps) else float("nan")
             fit = info[name]["blocks_per_sm"] * n_sm
-            print(f"{name} B={b}: plain build {plain_ms:.4f} ms, probe build {probe_ms:.4f} ms, "
-                  f"without the band loops {rest_ms:.4f} ms (so the band loops take about "
-                  f"{plain_ms - rest_ms:.4f} ms); "
+            rest = ("" if rest_ms is None else f"without the band loops {rest_ms:.4f} ms (so the "
+                    f"band loops take about {plain_ms - rest_ms:.4f} ms); ")
+            print(f"{name} B={b}: plain build {plain_ms:.4f} ms, probe build {probe_ms:.4f} ms, {rest}"
                   f"block {block_ns / 1e3:.2f} us = {block_cycles:.0f} cycles "
                   f"(SM clock {block_cycles / block_ns:.3f} GHz); in flight "
                   f"{float((t1 - t0).sum()) / span_ns:.1f} blocks of {fit} that fit, over "

@@ -1,5 +1,6 @@
-// Fused tPSF physics for Hopper (sm_90a): a forward and a backward kernel,
-// one thread block per sample.
+// Fused tPSF physics for Hopper (sm_90a): an f32 forward and backward
+// kernel and a bf16 tensor-core forward in two forms, one thread block per
+// sample.
 //
 // tpsf_physics_kernel replaces the Pallas TPU kernel
 // tactilesr_tpu/ops/pallas/tpsf_kernel.py (tpsf_physics_pallas_raw ->
@@ -91,9 +92,36 @@
 // 1e-4 HR and 1e-3 gradient parity with the plain versions needs; an
 // all-zero map gives exactly zero HR, LR and abm gradient.
 //
+// tpsf_physics_bf16_kernel and tpsf_physics_bf16x3_kernel replace the same
+// Pallas kernel at precision=DEFAULT and HIGH (physics_precision default and
+// high): the function above, with each of _sample_body's four dots (A . D,
+// T . A^T, U . HR, (U HR) . U^T) rounding its operands to bf16 and summing
+// in f32 -- one pass (hi . hi) or three (hi . hi + hi . lo + lo . hi, with
+// x = hi + lo split in bf16).  T and U HR are f32 sums rounded only as the
+// next product's operand; the mask, the second max, sum(HR) and alpha see
+// f32.  Their plain version is physics_plain(..., precision).
+//
+// What bounds them: bytes.  The two banded products are 3.06 MFLOP per
+// sample, which the bf16 tensor cores (989 TFLOP/s dense) do in 3.1 ns; the
+// 80,076 B of depth in and HR, LR and abm out take 23.9 ns at 3.35 TB/s.
+// The design keeps the products off the CUDA cores and everything else
+// in shared memory: one block per sample, 8 warps; depth arrives by a TMA
+// bulk copy (the mask reads it in f32), A(beta) and D are written as
+// bf16 planes (hi, and lo for three passes) padded to 112 x 112, and seven
+// warps each own a 16-row stripe of T = A . D and then of HR0 = T . A^T,
+// mma.sync m16n8k16 (bf16, f32 accumulators in registers) on operands
+// loaded by ldmatrix, skipping the 16x16 blocks outside A's band.  T goes
+// back to shared memory in bf16 (rounded where the TPU rounds it), HR0 stays
+// in registers through the second max and the fixup, and HR leaves by one
+// bulk store that overlaps U . HR and LR on the CUDA cores (bf16 x bf16 is
+// exact in f32, so CUDA-core FMAs on rounded operands are the tensor cores'
+// arithmetic up to the order of the sum).  One pass needs 102 KB of shared
+// memory (two blocks per SM), three passes 170 KB (one).
+//
 // Build: nvcc -O3 -gencode arch=compute_90a,code=sm_90a -std=c++17 -shared
 //        -Xcompiler -fPIC -Xptxas -v  (done by tactilesr_torch/ops/cuda/__init__.py)
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -876,6 +904,315 @@ tpsf_physics_bwd_kernel(const float* __restrict__ depth, const float* __restrict
   PROBE(PROBE_LAST);
 }
 
+// ------------------------------------------------------------ bf16 forward
+// tpsf_physics_bf16_kernel (one pass) and tpsf_physics_bf16x3_kernel (three
+// passes): the function of tpsf_physics_kernel with the products of
+// _sample_body at precision=DEFAULT and HIGH (see the file's header).  The
+// maps are padded to MP = 112 (seven 16-row tiles) and held in shared
+// memory as bf16 with a row stride of LDB = 120 elements (240 B: the eight
+// rows of an ldmatrix fall on eight different 16-byte bank groups); the
+// padded rows and columns are zero in every operand, so T's and HR0's are
+// zero too, and the epilogue skips them.
+constexpr int MP = 112;
+constexpr int MT = MP / 16;       // 16-row (and 16-deep) tiles of a padded map
+constexpr int LDB = 120;          // bf16 row stride of a padded map
+constexpr int BMAT = MP * LDB;    // bf16 elements of one padded map (26,880 B)
+constexpr int BAND_TILES = 4;     // A is zero on 16x16 blocks more than 4 apart (|k - i| >= 65)
+constexpr int PAIRS = MP / 2;     // bf16 pairs a padded row holds
+
+__host__ __device__ constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
+
+// Dynamic shared memory of the bf16 kernels, in bytes.  PLANES = 1 (hi) or
+// 2 (hi and lo).  R0 holds D in f32 (the bulk copy's target, read by the
+// mask and the bf16 conversion), then T's planes, then HR in f32 (the bulk
+// store's source).
+template <int PLANES>
+struct Bf16Smem {
+  static constexpr size_t MAP = BMAT * 2;
+  static constexpr size_t R0 = 0;
+  static constexpr size_t A = R0 + cmax(DEPTH_BYTES, PLANES * MAP);  // A(beta), PLANES maps
+  static constexpr size_t D = A + PLANES * MAP;                      // D, PLANES maps
+  static constexpr size_t G = D + PLANES * MAP;                      // gpad f32 [200]
+  static constexpr size_t U = G + 200 * 4;                           // U hi, U lo f32 [2][4][100]
+  static constexpr size_t V = U + 2 * TAXELS * HR * 4;               // V halves f32 [2][4][100]
+  static constexpr size_t MASK = V + 2 * TAXELS * HR * 4;            // contact-mask bits
+  static constexpr size_t RED = MASK + (MASK_WORDS + 2) * 4;         // block-reduction scratch
+  static constexpr size_t MBAR = RED + 32 * 4;                       // the mbarrier
+  static constexpr size_t BYTES = MBAR + 8;
+  static_assert(A % 16 == 0 && D % 16 == 0 && MAP % 16 == 0, "ldmatrix rows are 16-byte aligned");
+  static_assert(MBAR % 8 == 0, "mbarriers are 8-byte aligned");
+};
+constexpr size_t BF16_SMEM_BYTES = Bf16Smem<1>::BYTES;    // 102,368 B: two blocks per SM
+constexpr size_t BF16X3_SMEM_BYTES = Bf16Smem<2>::BYTES;  // 169,888 B: one block per SM
+
+__device__ __forceinline__ float bf16_round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// (a, b) rounded to bf16, a in the low half: the order of a fragment's pair
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Stores the pair (a, b) at element pair c2 of row r of the padded maps:
+// hi = bf16(x) into plane 0 and, with two planes, lo = bf16(x - hi) into
+// plane 1 (one map further).
+template <int PLANES>
+__device__ __forceinline__ void store_pair(__nv_bfloat16* map, int r, int c2, float a, float b) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(map + r * LDB) + c2;
+  w[0] = pack_bf16(a, b);
+  if constexpr (PLANES == 2) w[BMAT / 2] = pack_bf16(a - bf16_round(a), b - bf16_round(b));
+}
+
+// Four 8x8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (trans: each matrix transposed on the way).
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)) : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)) : "memory");
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col) on the tensor cores
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One product step at the kernel's precision: hi.hi, and with two planes
+// also hi.lo and lo.hi (the HIGH split; lo.lo is dropped, as there).
+template <int PLANES>
+__device__ __forceinline__ void mma_step(float c[4], const uint32_t ah[4], const uint32_t al[4],
+                                         uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_bf16(c, ah, bh0, bh1);
+  if constexpr (PLANES == 2) {
+    mma_bf16(c, ah, bl0, bl1);
+    mma_bf16(c, al, bh0, bh1);
+  }
+}
+
+// One warp's 16 x 112 stripe of a padded product, rows 16 mt..16 mt + 15:
+// acc[nt] is the 16x8 tile of columns 8 nt..8 nt + 7, in the mma's C
+// layout.  BAND_X: X = A(beta) = Y's left operand, so the depth tiles kt
+// run over the band of mt only (product 1, T = A D, Y = D read through
+// ldmatrix.trans from D[k][n]); otherwise Y = A(beta) is the right operand
+// (product 2, HR0 / alpha = T A^T, A^T[k][n] = A[n][k] read as stored) and
+// each 16-column group np meets the tiles kt of its band.
+template <int PLANES, bool BAND_X>
+__device__ __forceinline__ void stripe_product(const __nv_bfloat16* X, const __nv_bfloat16* Y,
+                                               int mt, float acc[2 * MT][4]) {
+  const int lane = threadIdx.x & 31;
+  const int xrow = lane & 15, xcol = (lane >> 4) * 8;             // A fragments (and trans B)
+  const int yrow = (lane & 7) + ((lane >> 4) << 3), ycol = ((lane >> 3) & 1) * 8;  // B, stored n x k
+#pragma unroll
+  for (int nt = 0; nt < 2 * MT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  const int kt0 = BAND_X ? max(0, mt - BAND_TILES) : 0;
+  const int kt1 = BAND_X ? min(MT - 1, mt + BAND_TILES) : MT - 1;
+#pragma unroll 1
+  for (int kt = kt0; kt <= kt1; ++kt) {
+    uint32_t ah[4], al[4] = {};  // al (and bl) only with two planes
+    ldsm_x4<false>(ah, X + (mt * 16 + xrow) * LDB + kt * 16 + xcol);
+    if constexpr (PLANES == 2) ldsm_x4<false>(al, X + BMAT + (mt * 16 + xrow) * LDB + kt * 16 + xcol);
+#pragma unroll
+    for (int np = 0; np < MT; ++np) {
+      if (!BAND_X && (np - kt > BAND_TILES || kt - np > BAND_TILES)) continue;
+      uint32_t bh[4], bl[4] = {};
+      const __nv_bfloat16* y = BAND_X ? Y + (kt * 16 + xrow) * LDB + np * 16 + xcol
+                                      : Y + (np * 16 + yrow) * LDB + kt * 16 + ycol;
+      ldsm_x4<BAND_X>(bh, y);
+      if constexpr (PLANES == 2) ldsm_x4<BAND_X>(bl, y + BMAT);
+      mma_step<PLANES>(acc[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+      mma_step<PLANES>(acc[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+}
+
+template <int PLANES>
+__device__ __forceinline__ void tpsf_physics_bf16_body(
+    const float* __restrict__ depth, const float* __restrict__ abm, float* __restrict__ hr_out,
+    float* __restrict__ lr_out, float c_psf, float c_mask, float disturbance, float degrade_scale) {
+  using L = Bf16Smem<PLANES>;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  float* r0 = reinterpret_cast<float*>(smem_b + L::R0);
+  __nv_bfloat16* Tm = reinterpret_cast<__nv_bfloat16*>(smem_b + L::R0);
+  __nv_bfloat16* Am = reinterpret_cast<__nv_bfloat16*>(smem_b + L::A);
+  __nv_bfloat16* Dm = reinterpret_cast<__nv_bfloat16*>(smem_b + L::D);
+  float* gpad = reinterpret_cast<float*>(smem_b + L::G);
+  float* Uh = reinterpret_cast<float*>(smem_b + L::U);
+  float* Ul = Uh + TAXELS * HR;
+  float* V = reinterpret_cast<float*>(smem_b + L::V);
+  unsigned* mask = reinterpret_cast<unsigned*>(smem_b + L::MASK);
+  float* red = reinterpret_cast<float*>(smem_b + L::RED);
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem_b + L::MBAR);
+
+  [[maybe_unused]] constexpr int PROBE_LAST = 7;
+  PROBE_INIT();
+  PROBE(0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t b = blockIdx.x;
+  const float alpha = abm[3 * b + 0];
+  const float beta = abm[3 * b + 1];
+  const float m = abm[3 * b + 2];
+
+  // 1. depth -> r0 by one bulk copy, overlapped with gpad, U (rounded: both
+  //    of its uses are products) and A(beta) in bf16
+  if (tid == 0) mbar_init(mbar);
+  __syncthreads();
+  if (tid == 0) bulk_load(r0, depth + b * NPIX, mbar);
+  psf_and_mask_taps(gpad, Uh, beta, m, c_psf, c_mask);
+  for (int q = tid; q < TAXELS * HR; q += THREADS) {  // the entries this thread wrote
+    const float u = Uh[q], hi = bf16_round(u);
+    Uh[q] = hi;
+    Ul[q] = bf16_round(u - hi);
+  }
+  __syncthreads();  // gpad published
+  for (int p = tid; p < MP * PAIRS; p += THREADS) {
+    const int i = p / PAIRS, k = 2 * (p % PAIRS);
+    const bool in = i < HR && k < HR;  // HR is even: k and k + 1 lie on one side
+    store_pair<PLANES>(Am, i, p % PAIRS, in ? gpad[GPAD_C + k - i] : 0.f,
+                       in ? gpad[GPAD_C + k + 1 - i] : 0.f);
+  }
+  mbar_wait(mbar, 0);
+  __syncthreads();  // the map has landed
+  PROBE(1);
+
+  // 2. the max and the mask bits from the f32 map; D in bf16, padded
+  max_and_mask(r0, red, disturbance, mask);
+  for (int p = tid; p < MP * PAIRS; p += THREADS) {
+    const int k = p / PAIRS, j = 2 * (p % PAIRS);
+    const float2 v = (k < HR && j < HR) ? *reinterpret_cast<const float2*>(r0 + k * HR + j)
+                                        : make_float2(0.f, 0.f);
+    store_pair<PLANES>(Dm, k, p % PAIRS, v.x, v.y);
+  }
+  __syncthreads();  // A and D published; r0 is free
+  PROBE(2);
+
+  // 3. T = A . D, rounded into r0 (T's padded rows and columns are zero)
+  float acc[2 * MT][4];
+  const int g = lane >> 2, tg = lane & 3;
+  if (warp < MT) {
+    stripe_product<PLANES, true>(Am, Dm, warp, acc);
+#pragma unroll
+    for (int nt = 0; nt < 2 * MT; ++nt) {
+      store_pair<PLANES>(Tm, warp * 16 + g, nt * 4 + tg, acc[nt][0], acc[nt][1]);
+      store_pair<PLANES>(Tm, warp * 16 + g + 8, nt * 4 + tg, acc[nt][2], acc[nt][3]);
+    }
+  }
+  __syncthreads();  // T published
+  PROBE(3);
+
+  // 4. HR0 = alpha T . A^T in registers; the second max over where(mask, 0, HR0)
+  float second = -INFINITY;
+  if (warp < MT) {
+    stripe_product<PLANES, false>(Tm, Am, warp, acc);
+#pragma unroll
+    for (int nt = 0; nt < 2 * MT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = warp * 16 + g + (e >> 1) * 8, j = nt * 8 + 2 * tg + (e & 1);
+        const float v = alpha * acc[nt][e];
+        acc[nt][e] = v;
+        if (i < HR && j < HR) {
+          const int px = i * HR + j;
+          second = fmaxf(second, (mask[px >> 5] >> (px & 31)) & 1u ? 0.f : v);
+        }
+      }
+  }
+  second = block_reduce<true>(second, red);  // its first barrier: every read of T is done
+  PROBE(4);
+
+  // 5. fixup; HR goes row-major into r0
+  float hsum = 0.f;
+  if (warp < MT) {
+#pragma unroll
+    for (int nt = 0; nt < 2 * MT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = warp * 16 + g + h * 8, j = nt * 8 + 2 * tg;
+        if (i < HR && j < HR) {
+          const int px = i * HR + j;
+          const unsigned bits = mask[px >> 5] >> (px & 31);  // px is even: px + 1 is in the same word
+          const float v0 = bits & 1u ? second : acc[nt][2 * h];
+          const float v1 = bits & 2u ? second : acc[nt][2 * h + 1];
+          hsum += v0;
+          hsum += v1;
+          *reinterpret_cast<float2*>(r0 + px) = make_float2(v0, v1);
+        }
+      }
+  }
+  fence_proxy_async();  // HR in r0 is read next by the bulk store
+  hsum = block_reduce<false>(hsum, red);  // its barriers publish the final HR
+  PROBE(5);
+
+  // 6. HR to global by one bulk store in the background; V = U . HR with
+  //    both operands rounded, as two halves of the sum over y
+  if (tid == 0) bulk_store(hr_out + b * NPIX, r0);
+  constexpr int Y_SPLIT = 52;
+  if (tid < 2 * HR) {
+    const int x = tid % HR, h = tid / HR;
+    float a[TAXELS] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int y = h * Y_SPLIT; y < (h ? HR : Y_SPLIT); ++y) {
+      const float v = r0[y * HR + x], vh = bf16_round(v);
+#pragma unroll
+      for (int t = 0; t < TAXELS; ++t) {
+        a[t] = fmaf(Uh[t * HR + y], vh, a[t]);
+        if constexpr (PLANES == 2) {
+          a[t] = fmaf(Uh[t * HR + y], bf16_round(v - vh), a[t]);
+          a[t] = fmaf(Ul[t * HR + y], vh, a[t]);
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < TAXELS; ++t) V[(h * TAXELS + t) * HR + x] = a[t];
+  }
+  __syncthreads();
+  PROBE(6);
+
+  // 7. LR = (bf16(V) . U^T - mn * sum(HR)) / (1 - mn) * scale: warp w gives
+  //    outputs 2w and 2w + 1
+  const float mn = expf(-100.0f / m);
+#pragma unroll 1
+  for (int o = 2 * warp; o < 2 * warp + 2; ++o) {
+    const int a = o / TAXELS, c = o % TAXELS;
+    float s = 0.f;
+#pragma unroll
+    for (int x = lane; x < HR; x += 32) {
+      const float v = V[a * HR + x] + V[(TAXELS + a) * HR + x], vh = bf16_round(v);
+      s = fmaf(vh, Uh[c * HR + x], s);
+      if constexpr (PLANES == 2) {
+        s = fmaf(vh, Ul[c * HR + x], s);
+        s = fmaf(bf16_round(v - vh), Uh[c * HR + x], s);
+      }
+    }
+    s = warp_sum(s);
+    if (lane == 0) lr_out[b * TAXELS * TAXELS + o] = (s - mn * hsum) / (1.0f - mn) * degrade_scale;
+  }
+  if (tid == 0) bulk_store_wait();  // r0 stays until the store has read it
+  PROBE(PROBE_LAST);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+tpsf_physics_bf16_kernel(const float* __restrict__ depth, const float* __restrict__ abm,
+                         float* __restrict__ hr_out, float* __restrict__ lr_out,
+                         float c_psf, float c_mask, float disturbance, float degrade_scale) {
+  tpsf_physics_bf16_body<1>(depth, abm, hr_out, lr_out, c_psf, c_mask, disturbance, degrade_scale);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+tpsf_physics_bf16x3_kernel(const float* __restrict__ depth, const float* __restrict__ abm,
+                           float* __restrict__ hr_out, float* __restrict__ lr_out,
+                           float c_psf, float c_mask, float disturbance, float degrade_scale) {
+  tpsf_physics_bf16_body<2>(depth, abm, hr_out, lr_out, c_psf, c_mask, disturbance, degrade_scale);
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -935,13 +1272,34 @@ extern "C" int tpsf_physics_bwd_launch(const float* depth, const float* abm, con
   return (int)cudaGetLastError();
 }
 
-// Occupancy and resources of kernel `which` (0 = forward, 1 = backward) on
+// The bf16 forward over B samples on `stream`: `passes` 1 (precision
+// DEFAULT, tpsf_physics_bf16_kernel) or 3 (HIGH, tpsf_physics_bf16x3_kernel);
+// the arguments as tpsf_physics_launch's.  Returns the cudaError_t.
+extern "C" int tpsf_physics_bf16_launch(const float* depth, const float* abm, float* hr,
+                                        float* lr, int batch, int passes, float c_psf,
+                                        float c_mask, float disturbance, float degrade_scale,
+                                        void* stream) {
+  if (passes != 1 && passes != 3) return (int)cudaErrorInvalidValue;
+  if (batch <= 0) return (int)cudaSuccess;
+  const auto kernel = passes == 1 ? tpsf_physics_bf16_kernel : tpsf_physics_bf16x3_kernel;
+  const size_t smem = passes == 1 ? BF16_SMEM_BYTES : BF16X3_SMEM_BYTES;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<batch, THREADS, smem, (cudaStream_t)stream>>>(depth, abm, hr, lr, c_psf, c_mask,
+                                                         disturbance, degrade_scale);
+  return (int)cudaGetLastError();
+}
+
+// Occupancy and resources of kernel `which` (0 = forward, 1 = backward,
+// 2 = bf16 forward, 3 = its three-pass form) on
 // the current device: out[0..5] = resident blocks per SM, threads per block,
 // dynamic and static shared bytes, registers per thread, local (spill)
 // bytes per thread.  Returns the cudaError_t.
 extern "C" int tpsf_kernel_info(int which, int* out) {
   if (which == 0) return kernel_info(tpsf_physics_kernel, SMEM_BYTES, out);
   if (which == 1) return kernel_info(tpsf_physics_bwd_kernel, B_SMEM_BYTES, out);
+  if (which == 2) return kernel_info(tpsf_physics_bf16_kernel, BF16_SMEM_BYTES, out);
+  if (which == 3) return kernel_info(tpsf_physics_bf16x3_kernel, BF16X3_SMEM_BYTES, out);
   return (int)cudaErrorInvalidValue;
 }
 

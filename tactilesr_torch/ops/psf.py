@@ -15,9 +15,20 @@ Every Gaussian here is separable, so per sample
 
 with ``g[t] = exp(-C_PSF (t-49)^2 / beta^2)``, ``U[t, x] = exp(-C_MASK
 (x - 12 - 25t)^2 / m)`` and ``mn = exp(-100 / m)``.  This module is the
-plain version of the CUDA kernel in ``ops/cuda/tpsf_kernel.cu``, which
-computes the same function; ``depth_to_hr_direct`` and
+plain version of the CUDA kernels in ``ops/cuda/tpsf_kernel.cu``, which
+compute the same function; ``depth_to_hr_direct`` and
 ``degradation_direct`` keep the direct forms for golden tests.
+
+``precision`` selects the arithmetic of the four products (A D, T A^T,
+U HR and (U HR) U^T), as ``physics_precision`` selects the in-kernel dots
+of ``tactilesr_tpu/ops/pallas/tpsf_kernel.py::_sample_body``:
+``highest`` multiplies in f32; ``default`` rounds both operands of each
+product to bf16 and accumulates in f32 (one bf16 pass); ``high`` splits
+each operand x into bf16 parts hi = bf16(x), lo = bf16(x - hi) and sums
+hi.hi + hi.lo + lo.hi in f32 (three passes).  The rounding happens at the
+products only: T and U HR are f32 sums rounded as the next product's
+operand, and the contact mask, the second max, sum(HR) and the alpha
+scale see unrounded f32 values.
 """
 
 from __future__ import annotations
@@ -37,6 +48,9 @@ __all__ = [
     "depth_to_hr_direct",
     "degradation",
     "degradation_direct",
+    "PHYSICS_PRECISIONS",
+    "resolve_physics_precision",
+    "resolve_use_kernel",
     "physics_plain",
     "physics_vjp_plain",
     "f32_matmul",
@@ -59,6 +73,53 @@ _PSF_DMAX = PSF_CENTER * math.sqrt(2.0)  # corner of the 99x99 field
 C_PSF = (10.0 / _PSF_DMAX) ** 2
 _MASK_DMAX = (HR_SIZE - 1 - TAXEL_CENTER_0) * math.sqrt(2.0)  # (12,12) -> (99,99)
 C_MASK = (10.0 / _MASK_DMAX) ** 2
+
+PHYSICS_PRECISIONS = ("highest", "high", "default")
+
+
+def resolve_physics_precision(val) -> str:
+    """``physics_precision`` -> "highest", "high" or "default" (any case;
+    None means "highest", the f32 parity default).  Anything else raises, as
+    JAX's ``resolve_physics_precision`` does."""
+    if val is None:
+        return "highest"
+    if isinstance(val, str) and val.lower() in PHYSICS_PRECISIONS:
+        return val.lower()
+    raise ValueError(f"physics_precision={val!r}: expected highest|high|default")
+
+
+def resolve_use_kernel(val):
+    """``use_pallas_physics`` (``--use-pallas`` in generation): auto or true
+    -> "auto" (the kernel's autograd wrapper on CUDA tensors, its plain
+    version on CPU tensors); false -> False (the plain f32 physics under
+    autograd everywhere).  Typos raise."""
+    if isinstance(val, str):
+        low = val.lower()
+        if low in ("auto", "1", "true", "yes", "on"):
+            return "auto"
+        if low in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(f"use_pallas_physics={val!r}: expected auto|true|false "
+                         "(or on/off/yes/no/1/0)")
+    return "auto" if val else False
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (nearest even), back in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
+    """a @ b in f32 with the operands rounded as ``precision`` says (the
+    module docstring).  bf16 x bf16 products are exact in f32, so only the
+    order of the f32 sums can differ from the tensor cores'."""
+    if precision == "highest":
+        return torch.matmul(a, b)
+    if precision == "default":
+        return torch.matmul(_bf16(a), _bf16(b))
+    a_hi, b_hi = _bf16(a), _bf16(b)
+    a_lo, b_lo = _bf16(a - a_hi), _bf16(b - b_hi)
+    return torch.matmul(a_hi, b_hi) + torch.matmul(a_hi, b_lo) + torch.matmul(a_lo, b_hi)
 
 
 def _col(v: torch.Tensor) -> torch.Tensor:
@@ -109,11 +170,12 @@ def _second_max_fixup(hr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, non_contact_max.detach(), hr)
 
 
-def depth_to_hr(depth: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+def depth_to_hr(depth: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                precision: str = "highest") -> torch.Tensor:
     """(B, 100, 100) depth -> HR maps through the separable matmuls."""
     a = _band_matrix(beta)
     d = depth.to(torch.float32)
-    hr = _col(alpha) * torch.matmul(torch.matmul(a, d), a.transpose(-2, -1))
+    hr = _col(alpha) * _dot(_dot(a, d, precision), a.transpose(-2, -1), precision)
     return _second_max_fixup(hr, contact_mask(d))
 
 
@@ -137,7 +199,7 @@ def _taxel_profiles(m: torch.Tensor) -> torch.Tensor:
     return torch.exp(-C_MASK * (t - c) ** 2 / _col(m))
 
 
-def degradation(hr: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def degradation(hr: torch.Tensor, m: torch.Tensor, precision: str = "highest") -> torch.Tensor:
     """(B, 100, 100) HR -> (B, 4, 4) degraded readings, separable form.
 
     The joint min-max of the 16 masks has min mn = exp(-100/m) and max 1,
@@ -146,7 +208,7 @@ def degradation(hr: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     u = _taxel_profiles(m)
     mn = _col(torch.exp(-100.0 / m))
     hrf = hr.to(torch.float32)
-    t = torch.matmul(torch.matmul(u, hrf), u.transpose(-2, -1))
+    t = _dot(_dot(u, hrf, precision), u.transpose(-2, -1), precision)
     total = hrf.sum(dim=(-2, -1), keepdim=True)
     return (t - mn * total) / (1.0 - mn) * DEGRADE_SCALE
 
@@ -180,14 +242,16 @@ def f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def physics_plain(depth: torch.Tensor, abm: torch.Tensor):
+def physics_plain(depth: torch.Tensor, abm: torch.Tensor, precision: str = "highest"):
     """Plain batched physics: depth (B,100,100), abm (B,3) -> (HR, LR).
 
-    The CUDA kernel's reference; f32 matmuls (set TF32 off on a GPU to
-    compare at the kernel's f32-FMA precision)."""
+    The CUDA kernels' reference, the products at ``precision`` (the module
+    docstring); they accumulate in f32, so set TF32 off on a GPU to
+    compare with the kernels."""
+    precision = resolve_physics_precision(precision)
     abm = abm.to(torch.float32)
-    hr = depth_to_hr(depth, abm[:, 0], abm[:, 1])
-    return hr, degradation(hr, abm[:, 2])
+    hr = depth_to_hr(depth, abm[:, 0], abm[:, 1], precision)
+    return hr, degradation(hr, abm[:, 2], precision)
 
 
 def physics_vjp_plain(depth, abm, g_hr, g_lr, need_depth: bool = True, need_abm: bool = True):
@@ -255,23 +319,27 @@ def physics_vjp_plain(depth, abm, g_hr, g_lr, need_depth: bool = True, need_abm:
     return g_depth, torch.stack([d_alpha, d_beta, d_m], dim=-1)
 
 
-def tpsf_forward_physics(depth, alpha_beta_m, return_psf: bool = True, use_kernel="auto"):
+def tpsf_forward_physics(depth, alpha_beta_m, return_psf: bool = True, use_kernel="auto",
+                         precision=None):
     """Batched physics: depth (B,100,100), alpha_beta_m (B,3) ->
     (HR (B,100,100), LR_degrade (B,4,4), psf (B,99,99) or None).
 
     ``use_kernel``: "auto" (the default) goes through the kernel's
-    differentiable wrapper ``tpsf_physics_fused``, which launches the CUDA
-    kernel when the tensors lie on a CUDA device and runs the plain version
-    when they lie on the CPU; False runs the plain version under autograd
-    anywhere.  On a GPU "auto" never falls back: a failed build or launch
-    raises.
+    differentiable wrapper ``tpsf_physics_fused`` at ``precision``
+    (``resolve_physics_precision``), which launches the CUDA kernel of that
+    precision when the tensors lie on a CUDA device and runs its plain
+    version when they lie on the CPU; False runs the plain f32 physics
+    under autograd anywhere, whatever ``precision`` says (the JAX
+    package's XLA path ignores it too).  On a GPU "auto" never falls back:
+    a failed build or launch raises.
     """
     if use_kernel not in ("auto", False):
         raise ValueError(f"use_kernel must be 'auto' or False, got {use_kernel!r}")
+    precision = resolve_physics_precision(precision)
     if use_kernel == "auto":
         from .cuda import tpsf_physics_fused
 
-        hr, lr = tpsf_physics_fused(depth, alpha_beta_m)
+        hr, lr = tpsf_physics_fused(depth, alpha_beta_m, precision)
     else:
         hr, lr = physics_plain(depth, alpha_beta_m)
     psf = None

@@ -13,7 +13,9 @@ the degraded prediction and the real z-channel reading over the valid rows;
 eval reports MSE and SSIM of the first sample of each test batch, averaged;
 an inference hook plots alpha/beta against force over two single-tap press
 sequences.  On a GPU the physics of every step runs through the CUDA
-kernel's autograd wrapper (``ops/cuda::tpsf_physics_fused``).
+kernel's autograd wrapper (``ops/cuda::tpsf_physics_fused``), whose forward
+kernel ``physics_precision`` selects: f32 (``highest``) or bf16 tensor-core
+products in one pass (``default``) or three (``high``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..config.default import tPSFNet_config
 from ..data.datasets import SingleTapSeqsDataset, TPSFNetDataset
 from ..metrics import batched_ssim
 from ..models.tpsf_net import TPSFNet
+from ..ops.psf import resolve_use_kernel
 from ..parallel.dist import check_single_device, is_main_process
 from ..runtime.checkpoint import load_checkpoint_file
 from ..runtime.device import resolve_device
@@ -51,33 +54,18 @@ __all__ = [
 logger = logging.getLogger("tactilesr_torch")
 
 
-def resolve_use_kernel(config):
-    """``use_pallas_physics``: auto or true -> "auto" (the kernel's autograd
-    wrapper on CUDA tensors, its plain version on CPU tensors); false ->
-    False (the plain physics under autograd everywhere).  Typos raise."""
-    val = config.get("use_pallas_physics", "auto")
-    if isinstance(val, str):
-        low = val.lower()
-        if low in ("auto", "1", "true", "yes", "on"):
-            return "auto"
-        if low in ("0", "false", "no", "off"):
-            return False
-        raise ValueError(f"use_pallas_physics={val!r}: expected auto|true|false "
-                         "(or on/off/yes/no/1/0)")
-    return "auto" if val else False
-
-
 def build_model(config) -> TPSFNet:
-    """A TPSFNet from the config, initialised from ``random_seed``."""
-    prec = config.get("physics_precision") or "highest"
-    if prec.lower() != "highest":
-        raise ValueError(f"physics_precision={prec!r}: only 'highest' (f32) is ported")
+    """A TPSFNet from the config, initialised from ``random_seed``.
+    ``physics_precision`` (highest, high or default; typos raise) sets the
+    kernel's products; with ``use_pallas_physics: false`` the physics is the
+    plain f32 version whatever it says, as JAX's XLA path."""
     return TPSFNet(
         gama=config["gama"],
         perception_scale=config["perception_scale"],
-        use_kernel=resolve_use_kernel(config),
+        use_kernel=resolve_use_kernel(config.get("use_pallas_physics", "auto")),
         generator=torch.Generator().manual_seed(int(config["random_seed"])),
         dtype=compute_dtype(config),
+        physics_precision=config.get("physics_precision"),
     )
 
 

@@ -110,8 +110,9 @@ def test_captured_resume_captures_again(tmp_path, dev):
     assert np.isfinite(_losses(again)).all()
 
 
-def _tpsf_trainer(tmp_path, name, dev, **kw):
-    cfg = dict(tPSFNet_config, compute_dtype="float32", save_dir=str(tmp_path / name))
+def _tpsf_trainer(tmp_path, name, dev, physics_precision="highest", **kw):
+    cfg = dict(tPSFNet_config, compute_dtype="float32", save_dir=str(tmp_path / name),
+               physics_precision=physics_precision)
     rng = np.random.default_rng(1)
     n = 72  # 5 steps of 16, the last with 8 valid rows
     lr = (rng.random((n, 3, 4, 4)) * 300).astype(np.float32)
@@ -142,6 +143,26 @@ def test_captured_stage1_replays_the_physics_kernels(tmp_path, dev):
     assert scan._graph.per_replay["tpsf_physics_bwd"] == 1
     assert counts["tpsf_physics_bwd"] == 10, counts
     assert counts["tpsf_physics"] >= 10 and counts["tpsf_physics_fused"] >= 10, counts
+    np.testing.assert_allclose(_losses(scan), _losses(eager), rtol=1e-4)
+
+
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_captured_stage1_replays_the_bf16_kernel(tmp_path, dev, precision):
+    """``physics_precision: default|high`` in scan mode: the graph holds that
+    precision's forward kernel and the f32 backward, one of each per replay,
+    and the f32 forward kernel never launches.  Losses against the eager run
+    at that precision at rtol 1e-4."""
+    name = {"default": "tpsf_physics_bf16", "high": "tpsf_physics_bf16x3"}[precision]
+    eager = _tpsf_trainer(tmp_path, "eager", dev, precision)
+    eager.train(auto_resume=False)
+    tcuda.reset_launch_counts()
+    scan = _tpsf_trainer(tmp_path, "scan", dev, precision, scan_epochs=True)
+    scan.train(auto_resume=False)
+    counts = dict(tcuda.launch_counts)
+    launched = {k: n for k, n in scan._graph.per_replay.items() if n}
+    assert launched == {"tpsf_physics_bwd": 1, name: 1, "tpsf_physics_fused": 1}, launched
+    assert counts["tpsf_physics_bwd"] == 10 and counts[name] >= 10, counts
+    assert counts["tpsf_physics"] == 0, counts
     np.testing.assert_allclose(_losses(scan), _losses(eager), rtol=1e-4)
 
 

@@ -9,7 +9,12 @@ machine with only the port's dependencies:
 
 Tolerances are the JAX kernel tests': HR rtol/atol 1e-4, LR rtol 1e-4 /
 atol 1e-6, gradients rtol 1e-3 / atol 1e-6; the plain version runs with
-TF32 off (f32 FMA, as the kernel).
+TF32 off (f32 FMA, as the kernel).  The bf16 kernels (``precision``
+default and high) are held against the plain version of their precision
+at 1e-3 of the largest |HR| and |LR| (``BF16_REL``): both round T = A D to
+bf16 as the next product's operand after f32 sums taken in different
+orders, so an element on a rounding boundary can round to neighbouring
+bf16 values.
 """
 
 import numpy as np
@@ -23,6 +28,8 @@ pytestmark = pytest.mark.gpu
 
 HR_TOL = dict(rtol=1e-4, atol=1e-4)
 LR_TOL = dict(rtol=1e-4, atol=1e-6)
+BF16_REL = 1e-3
+BF16_KERNELS = {"default": "tpsf_physics_bf16", "high": "tpsf_physics_bf16x3"}
 
 
 @pytest.fixture
@@ -247,3 +254,82 @@ def test_kernels_do_not_spill(dev):
     for name in ("tpsf_physics", "tpsf_physics_bwd"):
         assert ptxas[name]["spill_stores"] == 0 and ptxas[name]["spill_loads"] == 0, ptxas
         assert info[name]["local_bytes"] == 0, info
+
+
+# ------------------------------------------------------------ the bf16 kernels
+def _max_rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("b", [1, 5, 256, 8192])
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_bf16_kernel_matches_plain(dev, precision, b):
+    """One launch of the kernel of that precision (and none of another), at
+    BF16_REL of its plain version; the all-zero map gives zero HR and LR."""
+    depth, abm = _inputs(b + 1, dev, seed=b) if b == 1 else _inputs(b, dev, seed=b)
+    depth, abm = depth[:b], abm[:b]
+    with f32_matmul():
+        hr_p, lr_p = physics_plain(depth, abm, precision)
+    before = dict(tcuda.launch_counts)
+    hr_k, lr_k = tcuda.tpsf_physics(depth, abm, precision)
+    torch.cuda.synchronize()
+    after = dict(tcuda.launch_counts)
+    assert after.pop(BF16_KERNELS[precision]) == before.pop(BF16_KERNELS[precision]) + 1
+    assert after == before
+    assert _max_rel(hr_k, hr_p) < BF16_REL and _max_rel(lr_k, lr_p) < BF16_REL
+    assert b == 1 or (torch.all(hr_k[-1] == 0) and torch.all(lr_k[-1] == 0))
+
+
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_bf16_empty_batch_misaligned_strided_and_repeatable(dev, precision):
+    """An empty batch launches nothing; a depth that is not 16-byte aligned
+    and a strided one give the same bits; two launches give the same bits."""
+    name = BF16_KERNELS[precision]
+    before = tcuda.launch_counts[name]
+    hr, lr = tcuda.tpsf_physics(torch.zeros(0, 100, 100, device=dev), torch.ones(0, 3, device=dev),
+                                precision)
+    assert hr.shape == (0, 100, 100) and lr.shape == (0, 4, 4)
+    assert tcuda.launch_counts[name] == before
+    depth, abm = _inputs(256, dev, seed=41)
+    hr, lr = tcuda.tpsf_physics(depth, abm, precision)
+    shifted = torch.empty(256 * 10000 + 1, device=dev)[1:].view(256, 100, 100)
+    shifted.copy_(depth)
+    strided = depth.transpose(1, 2).contiguous().transpose(1, 2)
+    for d in (shifted, strided, depth):
+        hr2, lr2 = tcuda.tpsf_physics(d, abm, precision)
+        assert torch.equal(hr2, hr) and torch.equal(lr2, lr)
+
+
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_bf16_fused_counts_and_f32_backward(dev, precision):
+    """The autograd wrapper at a bf16 precision: one launch of that kernel,
+    of the wrapper and of the f32 backward per step, none of the f32
+    forward; for a given cotangent the gradient equals the one at f32."""
+    depth, abm = _inputs(5, dev, seed=3)
+    g_lr = torch.randn(5, 4, 4, generator=torch.Generator().manual_seed(4)).to(dev)
+    grads = {}
+    for prec in ("highest", precision):
+        before = dict(tcuda.launch_counts)
+        a = abm.clone().requires_grad_(True)
+        for _ in range(3):
+            _hr, lr = tcuda.tpsf_physics_fused(depth, a, prec)
+            grads[prec] = torch.autograd.grad(lr, a, g_lr)[0]
+        torch.cuda.synchronize()
+        added = {k: tcuda.launch_counts[k] - before[k] for k in before}
+    assert added == {"tpsf_physics": 0, "tpsf_physics_fused": 3, "tpsf_physics_bwd": 3,
+                     "tpsf_physics_bf16": 3 if precision == "default" else 0,
+                     "tpsf_physics_bf16x3": 3 if precision == "high" else 0}
+    assert torch.equal(grads[precision], grads["highest"])
+
+
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_bf16_kernels_do_not_spill(dev, precision):
+    """No spills; the one-pass kernel fits two blocks per SM, the three-pass
+    one (two bf16 planes per operand) one."""
+    tcuda.build()
+    name = BF16_KERNELS[precision]
+    ptxas = tcuda.ptxas_info(tcuda.build_log)[name]
+    info = tcuda.kernel_info()[name]
+    assert ptxas["spill_stores"] == 0 and ptxas["spill_loads"] == 0, ptxas
+    assert info["local_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= (2 if precision == "default" else 1), info

@@ -78,6 +78,13 @@ def test_generate_seqs_frame_order(tmp_path):
         np.testing.assert_array_equal(lr[seq, :3], lr_all[3 * 6 + seq])
         for k, rot in enumerate(range(5, -1, -1)):
             np.testing.assert_array_equal(lr[seq, 3 * (k + 1):3 * (k + 2)], lr_all[3 * rot + 2])
-    with pytest.raises(ValueError, match="physics_precision"):
+    # the bf16 precision is accepted (LR rows are the same rows), a typo is not
+    bf16 = torch_generate.generate_seqs_srdataset(ckpt, raw, str(tmp_path / "b"), sample_cnt=3,
+                                                  n_contacts=1, n_translations=1, device="cpu",
+                                                  physics_precision="default")
+    with np.load(bf16["test"]) as z:
+        np.testing.assert_array_equal(z["LR"], lr)
+        assert np.isfinite(z["HR"]).all()
+    with pytest.raises(SystemExit):
         torch_generate._cli(["seqs", "--tpsf-checkpoint", ckpt, "--raw-dir", raw, "--out-dir",
-                             str(tmp_path / "x"), "--physics-precision", "default", "--device", "cpu"])
+                             str(tmp_path / "x"), "--physics-precision", "bf16", "--device", "cpu"])

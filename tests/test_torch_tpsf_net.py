@@ -77,8 +77,14 @@ def test_checkpoint_roundtrip_and_precision_refusal(tmp_path):
     bundle = load_checkpoint_file(path)
     assert bundle["epoch"] == 3 and bundle["num_devices"] == 1
     assert set(bundle["model"]) == {f"MLP_layer.{i}.{p}" for i in (1, 3, 5, 7) for p in ("weight", "bias")}
+    for prec in ("default", "HIGH", "highest"):
+        model = torch_generate.load_tpsf(path, physics_precision=prec, device="cpu")
+        assert model.physics_precision == prec.lower() and model.use_kernel == "auto"
+    assert torch_generate.load_tpsf(path, device="cpu", use_pallas="false").use_kernel is False
     with pytest.raises(ValueError, match="physics_precision"):
-        torch_generate.load_tpsf(path, physics_precision="default", device="cpu")
+        torch_generate.load_tpsf(path, physics_precision="bf16", device="cpu")
+    with pytest.raises(ValueError, match="use_pallas_physics"):
+        torch_generate.load_tpsf(path, device="cpu", use_pallas="ture")
 
 
 def test_generate_single_matches_jax(tmp_path):

@@ -311,13 +311,14 @@ def test_entry_defaults_to_cuda_and_refuses_unported_options(tmp_path, raw_dir):
     with pytest.raises(RuntimeError, match="cuda"):
         tpsf_task._cli(argv[2:])  # without --device cpu
     with pytest.raises(ValueError, match="physics_precision"):
-        tpsf_task._cli(argv + ["--physics_precision", "default"])
+        tpsf_task._cli(argv + ["--physics_precision", "bf16"])
     with pytest.raises(ValueError, match="use_pallas_physics"):
         tpsf_task._cli(argv + ["--use_pallas_physics", "ture"])
     scan = tpsf_task._cli(argv + ["--save_dir", str(tmp_path / "scan"), "--scan_epochs", "true",
-                                  "--inference_test", "false"])
+                                  "--inference_test", "false", "--physics_precision", "default"])
     losses = scan.metric_storage["total_loss"].state_dict()["values"]
     assert scan.scan_epochs and scan.step == 3 and len(losses) == 3 and np.isfinite(losses).all()
+    assert scan.model.physics_precision == "default"
     with pytest.raises(NotImplementedError, match="data_parallel"):
         tpsf_task._cli(argv + ["--data_parallel", "4"])
     plain = tpsf_task.build_model(dict(tPSFNet_config, use_pallas_physics="false"))
