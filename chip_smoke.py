@@ -300,8 +300,8 @@ def phase_build():
               f"{name} spills: ptxas {p}, runtime {k}")
     check(info["tpsf_physics_bwd"]["blocks_per_sm"] >= 2,
           f"the backward fits {info['tpsf_physics_bwd']['blocks_per_sm']} blocks per SM (at least 2)")
-    check(info["tpsf_physics_bf16"]["blocks_per_sm"] >= 2,
-          f"the bf16 forward fits {info['tpsf_physics_bf16']['blocks_per_sm']} blocks per SM (at least 2)")
+    check(info["tpsf_physics_bf16"]["blocks_per_sm"] >= 3,
+          f"the bf16 forward fits {info['tpsf_physics_bf16']['blocks_per_sm']} blocks per SM (at least 3)")
     return info
 
 
@@ -532,6 +532,8 @@ PHYS_BF16_REL = 1e-3
 PHYS_BF16_F32_ENVELOPE = 1e-2
 BF16_KERNELS = {"default": "tpsf_physics_bf16", "high": "tpsf_physics_bf16x3"}
 BF16_PASSES = {"default": 1, "high": 3}
+# KERNEL_BATCHES and 397, which is not a whole number of waves
+PHYS_BF16_BATCHES = (1, 5, 256, 397, 8192)
 
 
 def _rel(got, want):
@@ -550,15 +552,50 @@ def tpsf_bf16_bound_ms(b, passes):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def edge_maps(dev, seed=0):
+    """Contact maps at the kernel's edges: contacts on rows and columns 0
+    and 99 (and the four corners) over noise, then maps where every pixel is
+    in contact (the second max is 0, so HR and LR are exactly zero), then
+    an ordinary map; returns depth, abm and the all-contact maps' indices."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    depth = 0.3 * torch.rand(8, 100, 100, generator=g)
+    depth[0, [0, -1], :] = 1.0
+    depth[1, :, [0, -1]] = 1.0
+    depth[2, [0, 0, -1, -1], [0, -1, 0, -1]] = 1.0
+    depth[3, [0, -1], :] = 1.0
+    depth[3, :, [0, -1]] = 1.0
+    depth[4] = 0.7
+    depth[5] = 2.0
+    depth[6] = 0.7 + 4e-4 * torch.rand(100, 100, generator=g)
+    depth[7] = 0.0
+    depth[7, 20:70, 30:80] = 1.0
+    abm = 0.5 + torch.randn(8, 3, generator=g).abs()
+    return depth.to(dev), abm.to(dev), [4, 5, 6]
+
+
 def phase_kernel_precision(dev):
     """Each bf16 kernel against the plain version of its precision (TF32
-    off) at B in KERNEL_BATCHES, within PHYS_BF16_REL, bitwise repeatable, the
-    all-zero map zero; its deviation from the f32 kernel (``default`` within
+    off) at B in PHYS_BF16_BATCHES and on the edge maps, within
+    PHYS_BF16_REL, bitwise repeatable, the all-zero and all-contact maps
+    zero; its deviation from the f32 kernel (``default`` within
     PHYS_BF16_F32_ENVELOPE of max|LR|).  Returns the max abs errors and the
     deviations at B=8192."""
     errs, devs = {}, {}
     for prec, name in BF16_KERNELS.items():
-        for b in KERNEL_BATCHES:
+        depth, abm, all_contact = edge_maps(dev)
+        with f32_matmul():
+            hr_p, lr_p = physics_plain(depth, abm, prec)
+        hr_k, lr_k = tcuda.tpsf_physics(depth, abm, prec)
+        torch.cuda.synchronize()
+        e_hr, e_lr = _rel(hr_k, hr_p), _rel(lr_k, lr_p)
+        check(max(e_hr, e_lr) < PHYS_BF16_REL,
+              f"{name} edge maps vs its plain version: HR {e_hr:.3e}, LR {e_lr:.3e} (limit {PHYS_BF16_REL})")
+        check(bool(torch.all(hr_k[all_contact] == 0)) and bool(torch.all(lr_k[all_contact] == 0)),
+              f"{name}: all-contact maps must give all-zero HR and LR")
+        errs[name] = max(float((hr_k - hr_p).abs().max()), float((lr_k - lr_p).abs().max()))
+        log(f"[kernel_precision] {name} edge maps (border rows and columns, all-contact): vs plain "
+            f"{prec} HR {e_hr:.3e} LR {e_lr:.3e} of the largest; all-contact maps zero ok")
+        for b in PHYS_BF16_BATCHES:
             # at B=1 the last (all-zero) map would be the only one: take a contact map
             depth, abm = physics_inputs(b + 1, dev, seed=b) if b == 1 else physics_inputs(b, dev, seed=b)
             depth, abm = depth[:b].contiguous(), abm[:b].contiguous()

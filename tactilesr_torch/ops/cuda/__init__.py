@@ -114,10 +114,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
 
 
-def _compile(defines: tuple = ()) -> tuple:
-    """Compile (if needed) and load the kernel library built with the
-    preprocessor ``defines``: (library, nvcc's output).  Raises on failure."""
-    with open(_SOURCE, "rb") as f:
+def _compile(defines: tuple = (), source: str = _SOURCE) -> tuple:
+    """Compile (if needed) and load the kernel library built from
+    ``source`` (this package's ``tpsf_kernel.cu``, or another version of
+    it) with the preprocessor ``defines``: (library, nvcc's output).
+    Raises on failure."""
+    with open(source, "rb") as f:
         src = f.read()
     flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
@@ -129,10 +131,10 @@ def _compile(defines: tuple = ()) -> tuple:
     else:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so_path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, _SOURCE], capture_output=True, text=True)
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, source], capture_output=True, text=True)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{log}")
+            raise RuntimeError(f"nvcc failed on {source}:\n{log}")
         with open(f"{log_path}.{os.getpid()}.tmp", "w") as f:
             f.write(log)
         os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)
@@ -172,13 +174,14 @@ def build() -> ctypes.CDLL:
         return _lib
 
 
-def kernel_info() -> dict:
+def kernel_info(lib=None) -> dict:
     """Per kernel (by launch-count name), on the current CUDA device:
     resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
     at the launch's threads and dynamic shared memory), threads per block,
     dynamic and static shared bytes, registers and local (spill) bytes per
-    thread.  Builds the library if needed; raises on a CUDA error."""
-    lib = build()
+    thread.  Of ``lib`` (a library from ``_compile``), by default the built
+    one (building it if needed); raises on a CUDA error."""
+    lib = lib or build()
     info = {}
     for which, name in enumerate(KERNELS.values()):
         out = (ctypes.c_int * 6)()

@@ -1,6 +1,6 @@
 """Where the time of the tPSF physics kernels goes, phase by phase, on the GPU.
 
-    python -m tactilesr_torch.ops.cuda.probe [--batches 256 8192]
+    python -m tactilesr_torch.ops.cuda.probe [--batches 256 8192] [--baseline PATH]
 
 Builds ``tpsf_kernel.cu`` twice more.  With ``-DTPSF_PROBE`` lane 0 of every
 warp stamps ``clock64()`` at the end of each phase (most phases end at block
@@ -16,8 +16,18 @@ how many blocks were in flight on average (summed block time over the
 kernel's span) against how many fit; and how far apart blocks start on one
 SM, as a share of the block time.  The backward runs as training calls it
 (LR cotangent, abm gradient).  The bf16 forward kernels (``precision``
-default and high) have no band loops on the CUDA cores, so the third
-build's column is left out for them.
+default and high) have no band loops on the CUDA cores; in the one-pass
+kernel's third build its two tensor-core products run no step instead,
+and the three-pass kernel's third column is left out.
+
+``--baseline PATH`` names another version of ``tpsf_kernel.cu`` (an earlier
+commit's, unpacked into a directory that git ignores).  It is built too,
+plain and with ``-DTPSF_PROBE``; for the one-pass bf16 kernel the two
+versions are then timed in turns (baseline, this, this, baseline; CUDA
+events) at each batch, and the baseline's phase table, registers and blocks
+per SM are printed beside this version's.  The baseline's one-pass kernel
+is read with the phases of the first bf16 design (``BASELINE_BF16_PHASES``),
+which the three-pass kernel keeps.
 """
 
 from __future__ import annotations
@@ -28,10 +38,9 @@ import ctypes
 import torch
 
 from ..psf import C_MASK, C_PSF, DEGRADE_SCALE, DISTURBANCE
-from . import _compile, _f32_aligned, kernel_info, tpsf_physics, tpsf_physics_bwd
+from . import _compile, _f32_aligned, build, kernel_info, tpsf_physics, tpsf_physics_bwd
 
 PROBE_SLOTS = 16  # tpsf_kernel.cu: PROBE_SLOTS, for each warp of a block
-WARPS = 8  # tpsf_kernel.cu: THREADS / 32
 PHASES = {
     "tpsf_physics": [
         "depth bulk copy, gpad and U", "max and mask bits", "pass 1: T = A D, T^T stored",
@@ -43,11 +52,18 @@ PHASES = {
         "h2 correlation, pass Q^T", "Q stored, depth copied again", "h1 correlation, dbeta",
     ],
 }
-_BF16_PHASES = [
+PHASES["tpsf_physics_bf16"] = [
+    "depth bulk copy, gpad, U, A tiles", "max, mask bits, D in bf16", "product 1: T = A D, T stored",
+    "product 2: HR0, mask bits, 1 reduction", "HR stored, V = U HR (mma)", "LR",
+]
+# the first bf16 design, which the three-pass kernel keeps (and the one-pass
+# kernel had until it was given its own body)
+BASELINE_BF16_PHASES = PHASES["tpsf_physics_bf16x3"] = [
     "depth bulk copy, gpad, U, A in bf16", "max, mask bits, D in bf16", "product 1: T = A D",
     "product 2: HR0, second max", "fixup, sum(HR)", "HR bulk store, V = U HR", "LR",
 ]
-PHASES["tpsf_physics_bf16"] = PHASES["tpsf_physics_bf16x3"] = _BF16_PHASES
+BF16_BYTES = 4 * (100 * 100 + 3 + 100 * 100 + 16)  # a sample's depth and abm in, HR and LR out
+PEAK_HBM_BPS = 3.35e12  # H100 SXM
 
 
 def _inputs(b, dev, seed=0):
@@ -76,14 +92,75 @@ def _events_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def probe(batches=(256, 8192)):
+def _phase_table(label, phases, lib, probed, plain, rest, iters, b, k_info, n_sm):
+    """Times ``plain`` and ``probed`` (and ``rest``), then runs ``probed``
+    once with the stamps on and prints the phase table; returns its numbers.
+    ``k_info`` is the kernel's ``kernel_info`` entry (its warps and blocks
+    per SM)."""
+    dev = torch.device("cuda")
+    fit = k_info["blocks_per_sm"] * n_sm
+    stamps = torch.zeros(b, k_info["threads"] // 32, PROBE_SLOTS, dtype=torch.int64, device=dev)
+    err = lib.tpsf_set_probe(None)
+    plain_ms = _events_ms(plain, iters)
+    probe_ms = _events_ms(probed, iters)
+    rest_ms = None if rest is None else _events_ms(rest, iters)
+    err = err or lib.tpsf_set_probe(stamps.data_ptr())
+    err = err or probed()
+    torch.cuda.synchronize()
+    err = err or lib.tpsf_set_probe(None)
+    if err:
+        raise RuntimeError(f"probe of {label} failed: {lib.tpsf_error_string(err).decode()}")
+    s = stamps.cpu().double()  # (block, warp, slot)
+    n = len(phases)
+    per_warp = s[:, :, 1:n + 1] - s[:, :, :n]
+    cycles = per_warp.mean((0, 1))
+    median = per_warp.flatten(0, 1).median(0).values
+    spread = (s[:, :, 1:n + 1].amax(1) - s[:, :, 1:n + 1].amin(1)).mean(0)
+    block_cycles = float((s[:, 0, n] - s[:, 0, 0]).mean())
+    sm, t0, t1 = s[:, 0, PROBE_SLOTS - 3], s[:, 0, PROBE_SLOTS - 2], s[:, 0, PROBE_SLOTS - 1]
+    block_ns = float((t1 - t0).mean())
+    span_ns = float(t1.max() - t0.min())
+    # how far apart blocks start on one SM, over the block time
+    gaps = torch.cat([t0[sm == k].sort().values.diff() for k in sm.unique()])
+    gap_share = float(gaps.median()) / block_ns if len(gaps) else float("nan")
+    loops = "products" if "bf16" in label else "band loops"
+    rest_txt = ("" if rest_ms is None else f"without the {loops} {rest_ms:.4f} ms (so the "
+                f"{loops} take about {plain_ms - rest_ms:.4f} ms); ")
+    print(f"{label} B={b}: plain build {plain_ms:.4f} ms, probe build {probe_ms:.4f} ms, {rest_txt}"
+          f"block {block_ns / 1e3:.2f} us = {block_cycles:.0f} cycles "
+          f"(SM clock {block_cycles / block_ns:.3f} GHz); in flight "
+          f"{float((t1 - t0).sum()) / span_ns:.1f} blocks of {fit} that fit, over "
+          f"{span_ns / 1e3:.1f} us; blocks start on an SM a median {gap_share:.3f} of a "
+          "block apart", flush=True)
+    print(f"    {'phase (cycles: mean, median; spread of its end over the warps)':<48}", flush=True)
+    for phase, c, med, spr in zip(phases, cycles.tolist(), median.tolist(), spread.tolist()):
+        print(f"    {phase:<40} {c:8.0f} {med:8.0f} {spr:8.0f} {c / block_cycles * 100:5.1f}%",
+              flush=True)
+    return dict(plain_ms=plain_ms, probe_ms=probe_ms, rest_ms=rest_ms, block_ns=block_ns,
+                start_gap_share=gap_share, block_cycles=block_cycles, span_ns=span_ns,
+                phases=dict(zip(phases, cycles.tolist())))
+
+
+def probe(batches=(256, 8192), baseline=None):
     dev = torch.device("cuda")
     lib, _ = _compile(("TPSF_PROBE",))
     no_band, _ = _compile(("TPSF_PROBE_NO_BAND",))
-    lib.tpsf_set_probe.argtypes = [ctypes.c_void_p]
-    lib.tpsf_set_probe.restype = ctypes.c_int
+    libs = [lib]
+    if baseline:
+        base, _ = _compile((), source=baseline)
+        base_probe, _ = _compile(("TPSF_PROBE",), source=baseline)
+        libs.append(base_probe)
+        base_info = kernel_info(base)["tpsf_physics_bf16"]
+    for lb in libs:
+        lb.tpsf_set_probe.argtypes = [ctypes.c_void_p]
+        lb.tpsf_set_probe.restype = ctypes.c_int
     info = kernel_info()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    if baseline:
+        for label, k in (("this version", info["tpsf_physics_bf16"]), ("baseline", base_info)):
+            print(f"tpsf_physics_bf16, {label}: {k['registers']} registers, {k['blocks_per_sm']} blocks "
+                  f"per SM, {k['dynamic_smem']} B of dynamic shared memory, {k['local_bytes']} B local",
+                  flush=True)
     report = {}
     for b in batches:
         depth, abm, g_lr = _inputs(b, dev, seed=b)
@@ -108,62 +185,37 @@ def probe(batches=(256, 8192)):
             "tpsf_physics": (fwd(lib), lambda: tpsf_physics(depth, abm), fwd(no_band)),
             "tpsf_physics_bwd": (bwd(lib), lambda: tpsf_physics_bwd(depth, abm, None, g_lr, need_depth=False),
                                  bwd(no_band)),
-            "tpsf_physics_bf16": (bf16(lib, 1), lambda: tpsf_physics(depth, abm, "default"), None),
+            "tpsf_physics_bf16": (bf16(lib, 1), lambda: tpsf_physics(depth, abm, "default"), bf16(no_band, 1)),
             "tpsf_physics_bf16x3": (bf16(lib, 3), lambda: tpsf_physics(depth, abm, "high"), None),
         }
         iters = 200 if b <= 256 else 20
         for name, (probed, plain, rest) in launches.items():
-            stamps = torch.zeros(b, WARPS, PROBE_SLOTS, dtype=torch.int64, device=dev)
-            err = lib.tpsf_set_probe(None)
-            plain_ms = _events_ms(plain, iters)
-            probe_ms = _events_ms(probed, iters)
-            rest_ms = None if rest is None else _events_ms(rest, iters)
-            err = err or lib.tpsf_set_probe(stamps.data_ptr())
-            err = err or probed()
-            torch.cuda.synchronize()
-            err = err or lib.tpsf_set_probe(None)
-            if err:
-                raise RuntimeError(f"probe of {name} failed: {lib.tpsf_error_string(err).decode()}")
-            s = stamps.cpu().double()  # (block, warp, slot)
-            n = len(PHASES[name])
-            per_warp = s[:, :, 1:n + 1] - s[:, :, :n]
-            cycles = per_warp.mean((0, 1))
-            median = per_warp.flatten(0, 1).median(0).values
-            spread = (s[:, :, 1:n + 1].amax(1) - s[:, :, 1:n + 1].amin(1)).mean(0)
-            block_cycles = float((s[:, 0, n] - s[:, 0, 0]).mean())
-            sm, t0, t1 = s[:, 0, PROBE_SLOTS - 3], s[:, 0, PROBE_SLOTS - 2], s[:, 0, PROBE_SLOTS - 1]
-            block_ns = float((t1 - t0).mean())
-            span_ns = float(t1.max() - t0.min())
-            # how far apart blocks start on one SM, over the block time
-            gaps = torch.cat([t0[sm == k].sort().values.diff() for k in sm.unique()])
-            gap_share = float(gaps.median()) / block_ns if len(gaps) else float("nan")
-            fit = info[name]["blocks_per_sm"] * n_sm
-            rest = ("" if rest_ms is None else f"without the band loops {rest_ms:.4f} ms (so the "
-                    f"band loops take about {plain_ms - rest_ms:.4f} ms); ")
-            print(f"{name} B={b}: plain build {plain_ms:.4f} ms, probe build {probe_ms:.4f} ms, {rest}"
-                  f"block {block_ns / 1e3:.2f} us = {block_cycles:.0f} cycles "
-                  f"(SM clock {block_cycles / block_ns:.3f} GHz); in flight "
-                  f"{float((t1 - t0).sum()) / span_ns:.1f} blocks of {fit} that fit, over "
-                  f"{span_ns / 1e3:.1f} us; blocks start on an SM a median {gap_share:.3f} of a "
-                  "block apart", flush=True)
-            print(f"    {'phase (cycles: mean, median; spread of its end over the warps)':<48}", flush=True)
-            for phase, c, med, spr in zip(PHASES[name], cycles.tolist(), median.tolist(), spread.tolist()):
-                print(f"    {phase:<32} {c:8.0f} {med:8.0f} {spr:8.0f} {c / block_cycles * 100:5.1f}%",
-                      flush=True)
-            report[(name, b)] = dict(plain_ms=plain_ms, probe_ms=probe_ms, rest_ms=rest_ms, block_ns=block_ns,
-                                     start_gap_share=gap_share,
-                                     block_cycles=block_cycles, span_ns=span_ns,
-                                     phases=dict(zip(PHASES[name], cycles.tolist())))
+            report[(name, b)] = _phase_table(name, PHASES[name], lib, probed, plain, rest, iters, b,
+                                             info[name], n_sm)
+        if baseline:
+            ours, theirs = bf16(build(), 1), bf16(base, 1)
+            turns = [_events_ms(fn, iters) for fn in (theirs, ours, ours, theirs)]
+            bound = b * BF16_BYTES / PEAK_HBM_BPS * 1e3
+            print(f"A/B tpsf_physics_bf16 B={b} (baseline, this, this, baseline): "
+                  + ", ".join(f"{t:.4f}" for t in turns)
+                  + f" ms; byte bound {bound:.4f} ms: this {bound / min(turns[1:3]) * 100:.1f}%, "
+                  f"baseline {bound / min(turns[0], turns[3]) * 100:.1f}% of it", flush=True)
+            report[("tpsf_physics_bf16 A/B", b)] = dict(turns_ms=turns, bound_ms=bound)
+            report[("tpsf_physics_bf16 baseline", b)] = _phase_table(
+                "tpsf_physics_bf16 (baseline)", BASELINE_BF16_PHASES, base_probe, bf16(base_probe, 1),
+                theirs, None, iters, b, base_info, n_sm)
     return report
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batches", type=int, nargs="+", default=[256, 8192])
+    ap.add_argument("--baseline", default=None,
+                    help="another version of tpsf_kernel.cu to time and probe beside this one")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("the probe needs an NVIDIA GPU")
-    probe(tuple(args.batches))
+    probe(tuple(args.batches), args.baseline)
 
 
 if __name__ == "__main__":

@@ -104,19 +104,64 @@
 // What bounds them: bytes.  The two banded products are 3.06 MFLOP per
 // sample, which the bf16 tensor cores (989 TFLOP/s dense) do in 3.1 ns; the
 // 80,076 B of depth in and HR, LR and abm out take 23.9 ns at 3.35 TB/s.
-// The design keeps the products off the CUDA cores and everything else
-// in shared memory: one block per sample, 8 warps; depth arrives by a TMA
-// bulk copy (the mask reads it in f32), A(beta) and D are written as
-// bf16 planes (hi, and lo for three passes) padded to 112 x 112, and seven
-// warps each own a 16-row stripe of T = A . D and then of HR0 = T . A^T,
-// mma.sync m16n8k16 (bf16, f32 accumulators in registers) on operands
-// loaded by ldmatrix, skipping the 16x16 blocks outside A's band.  T goes
-// back to shared memory in bf16 (rounded where the TPU rounds it), HR0 stays
-// in registers through the second max and the fixup, and HR leaves by one
-// bulk store that overlaps U . HR and LR on the CUDA cores (bf16 x bf16 is
-// exact in f32, so CUDA-core FMAs on rounded operands are the tensor cores'
-// arithmetic up to the order of the sum).  One pass needs 102 KB of shared
-// memory (two blocks per SM), three passes 170 KB (one).
+// Both keep the products off the CUDA cores: one block of 8 warps per
+// sample, depth by a TMA bulk copy (the mask reads it in f32), the maps
+// padded to 112 x 112 in bf16, and seven warps that each own a 16-row
+// stripe of T = A . D and then of HR0 = T . A^T, mma.sync m16n8k16 (bf16,
+// f32 accumulators in registers) on operands loaded by ldmatrix, skipping
+// the 16x16 blocks outside A's band.  T goes back to shared memory in bf16
+// (rounded where the TPU rounds it) and HR0 stays f32 in registers.  So the
+// products are a small part of a block; the rest is what the two designs
+// differ in.
+//
+// The one-pass kernel (tpsf_physics_bf16_kernel) is shaped around the time
+// outside the products, since a block's latency, not its bytes, sets its
+// time (the 256 samples of a training or generation batch fit in one wave):
+//   - A(beta) is Toeplitz, A[i][k] = g(k - i), so a 16x16 block of it
+//     depends only on its block offset kt - mt, and only offsets -4..4 are
+//     non-zero: nine 16x16 tiles (6.9 KB, 1,152 pair stores) replace a
+//     112 x 112 plane (26.9 KB, 6,272 pair stores).  Product 1 reads tile
+//     kt - mt as its row operand, product 2 tile kt - np as its column
+//     operand (A^T's block (kt, np) is A's block (np, kt), read as stored).
+//     The padding is no longer zero in A: A's padded rows and columns hold
+//     taps, so T's padded rows and HR0's padded rows and columns are
+//     garbage (finite).  The result stays exact because D's padded rows and
+//     columns are zero, which makes T's padded columns zero, so both
+//     contractions over k >= 100 add nothing, and because the epilogue reads
+//     only i, j < 100.
+//   - The epilogue has one block reduction: each thread gathers the contact
+//     bits of its 52 places once into two registers, then takes the second
+//     max over the non-contact HR0 (the contact pixels' zeros are its
+//     floor), their sum and the contact count together; sum(HR) = that sum
+//     + count * second.  HR goes straight from the mma's C registers to
+//     global memory (a quad of lanes writes 32 contiguous bytes of a row),
+//     and V = U . bf16(HR) runs on the tensor cores from the same registers:
+//     movmatrix transposes the C fragment of an 8x8 block into the B
+//     fragment, and each warp stores its stripe's partial of V, which LR
+//     sums in stripe order.  No atomics: the results are bitwise repeatable.
+//   - Shared memory is one 40,000 B region that holds the depth map in f32,
+//     then D in bf16 (written from the registers the mask read the map
+//     into), then T (written once every warp has read D, from the
+//     accumulators), then V's partials; beside it the tiles, gpad, U, the
+//     mask bits, the reduction scratch and the mbarrier: 50,976 B a block.
+//     Registers then set the blocks per SM: three, at 80 a thread.  That
+//     fits because nothing is computed for columns 104..111 (T's are zero,
+//     HR0's unread: 52 accumulators, not 56), the mask bits are kept in the
+//     order the ballots give them, so that a thread gathers a row's 26 bits
+//     with two 8-byte loads and a few shifts, and the epilogue keeps HR0
+//     only at the non-contact pixels (zero elsewhere), so the fixup is one
+//     select an element.  Fourteen warps of half stripes (448 threads, 72
+//     registers, two blocks per SM) measured slower on an H100: a product
+//     phase did not shorten with its warps' share of the tiles.
+//
+// The three-pass kernel (tpsf_physics_bf16x3_kernel) keeps the first
+// design: A(beta) and D written as full bf16 planes (hi and lo), the second
+// max and the fixup as two block reductions with per-element mask lookups,
+// HR staged in shared memory and stored by one bulk copy that overlaps
+// U . HR and LR on the CUDA cores (bf16 x bf16 is exact in f32, so
+// CUDA-core FMAs on rounded operands are the tensor cores' arithmetic up to
+// the order of the sum).  It needs 170 KB of shared memory (one block per
+// SM).
 //
 // Build: nvcc -O3 -gencode arch=compute_90a,code=sm_90a -std=c++17 -shared
 //        -Xcompiler -fPIC -Xptxas -v  (done by tactilesr_torch/ops/cuda/__init__.py)
@@ -910,9 +955,10 @@ tpsf_physics_bwd_kernel(const float* __restrict__ depth, const float* __restrict
 // _sample_body at precision=DEFAULT and HIGH (see the file's header).  The
 // maps are padded to MP = 112 (seven 16-row tiles) and held in shared
 // memory as bf16 with a row stride of LDB = 120 elements (240 B: the eight
-// rows of an ldmatrix fall on eight different 16-byte bank groups); the
-// padded rows and columns are zero in every operand, so T's and HR0's are
-// zero too, and the epilogue skips them.
+// rows of an ldmatrix fall on eight different 16-byte bank groups).  In the
+// three-pass kernel the padded rows and columns are zero in every operand,
+// so T's and HR0's are zero too, and the epilogue skips them; the one-pass
+// kernel's A is nine tiles whose padding is not zero (below).
 constexpr int MP = 112;
 constexpr int MT = MP / 16;       // 16-row (and 16-deep) tiles of a padded map
 constexpr int LDB = 120;          // bf16 row stride of a padded map
@@ -942,7 +988,6 @@ struct Bf16Smem {
   static_assert(A % 16 == 0 && D % 16 == 0 && MAP % 16 == 0, "ldmatrix rows are 16-byte aligned");
   static_assert(MBAR % 8 == 0, "mbarriers are 8-byte aligned");
 };
-constexpr size_t BF16_SMEM_BYTES = Bf16Smem<1>::BYTES;    // 102,368 B: two blocks per SM
 constexpr size_t BF16X3_SMEM_BYTES = Bf16Smem<2>::BYTES;  // 169,888 B: one block per SM
 
 __device__ __forceinline__ float bf16_round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
@@ -1199,11 +1244,373 @@ __device__ __forceinline__ void tpsf_physics_bf16_body(
   PROBE(PROBE_LAST);
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
+// ------------------------------------------------- one-pass bf16 forward
+// tpsf_physics_bf16_kernel's own body (precision=DEFAULT); see the file's
+// header for the design.  A(beta) is Toeplitz: A[i][k] = g(k - i), so the
+// 16x16 block (mt, kt) of the padded A is one of nine tiles, by its offset
+// o = kt - mt in -4..4, tile[r][c] = g(16 o + c - r); |o| >= 5 is zero.
+constexpr int LDT = 24;                        // bf16 row stride of a tile (48 B: an ldmatrix's
+                                               // eight rows on eight bank groups)
+constexpr int TILE = 16 * LDT;                 // bf16 elements a tile
+constexpr int NOFFS = 2 * BAND_TILES + 1;      // nine tiles
+constexpr int NTM = 13;                        // 8-column n-tiles that hold map columns (< 100)
+constexpr int VLD = NTM * 8;                   // V partial row
+constexpr int RED3 = 32;                       // reduction scratch: max, sum, count per warp
+
+// Dynamic shared memory of the one-pass kernel, in bytes.  R0 holds the
+// depth map in f32 (the bulk copy's target), then D in bf16 (written from
+// the registers the mask read it into), then T in bf16, then the seven
+// warps' partials of V = U . HR.
+struct OnePassSmem {
+  static constexpr size_t R0 = 0;
+  static constexpr size_t TILES = R0 + DEPTH_BYTES;                 // A's nine tiles, bf16
+  static constexpr size_t G = TILES + NOFFS * TILE * 2;             // gpad f32 [200]
+  static constexpr size_t U = G + 200 * 4;                          // U rounded to bf16, f32 [4][100]
+  static constexpr size_t MASK = U + TAXELS * HR * 4;               // contact-mask bits
+  static constexpr size_t RED = MASK + (MASK_WORDS + 2) * 4;        // reduction scratch
+  static constexpr size_t MBAR = RED + 3 * RED3 * 4;                // the mbarrier
+  static constexpr size_t BYTES = MBAR + 8;
+  static_assert(size_t(BMAT) * 2 <= DEPTH_BYTES, "D and T fit where the depth map landed");
+  static_assert(size_t(MT) * TAXELS * VLD * 4 <= DEPTH_BYTES, "V's partials fit there too");
+  static_assert(TILES % 16 == 0 && (TILE * 2) % 16 == 0, "ldmatrix rows are 16-byte aligned");
+  static_assert(MASK % 8 == 0, "row_contact_bits loads two words at once");
+  static_assert(MBAR % 8 == 0, "mbarriers are 8-byte aligned");
+};
+constexpr size_t BF16_SMEM_BYTES = OnePassSmem::BYTES;  // 50,976 B
+
+// Block offset o's tile.
+__device__ __forceinline__ const __nv_bfloat16* a_tile(const __nv_bfloat16* tiles, int o) {
+  return tiles + (o + BAND_TILES) * TILE;
+}
+
+// The 8x8 bf16 matrix whose fragment (row lane / 4, columns 2 (lane % 4) and
+// + 1) this lane holds, transposed: the lane gets the same places of the
+// transpose.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// The max and the contact-mask bits of the f32 map in r0, then D in bf16
+// over it, padded to MP x MP with zeros, written from the registers the map
+// was read into.  The caller publishes D and the mask.  The map goes in
+// chunks of 128 pixels as in max_and_mask, but the bits stay in ballot
+// order: pixel p = 128 ch + 4 l + c is bit l of word 4 ch + c
+// (row_contact_bits reads them).
+__device__ __forceinline__ void mask_and_d(const float* r0, float* red, float disturbance,
+                                           unsigned* mask, __nv_bfloat16* Dm) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float4 v[CHUNKS_PER_WARP];
+  float dmax = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < CHUNKS_PER_WARP; ++i) {
+    const int p = 128 * (warp + WARPS * i) + 4 * lane;
+    v[i] = p < NPIX ? ld4(r0 + p) : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+    dmax = fmaxf(dmax, fmaxf(fmaxf(v[i].x, v[i].y), fmaxf(v[i].z, v[i].w)));
+  }
+  const float thr = block_reduce<true>(dmax, red) - disturbance;  // its barriers: r0 is read
+#pragma unroll
+  for (int i = 0; i < CHUNKS_PER_WARP; ++i) {
+    const int ch = warp + WARPS * i, p = 128 * ch + 4 * lane;
+    if (ch < MASK_CHUNKS) {  // the same for the whole warp
+      const unsigned bx = __ballot_sync(0xffffffffu, v[i].x > thr);
+      const unsigned by = __ballot_sync(0xffffffffu, v[i].y > thr);
+      const unsigned bz = __ballot_sync(0xffffffffu, v[i].z > thr);
+      const unsigned bw = __ballot_sync(0xffffffffu, v[i].w > thr);
+      if (lane < 4) mask[4 * ch + lane] = lane == 0 ? bx : lane == 1 ? by : lane == 2 ? bz : bw;
+    }
+    if (p < NPIX)  // four pixels of one row (HR is a multiple of 4): 8 bytes
+      *reinterpret_cast<uint2*>(Dm + (p / HR) * LDB + p % HR) =
+          make_uint2(pack_bf16(v[i].x, v[i].y), pack_bf16(v[i].z, v[i].w));
+  }
+  // the padding: columns 100..111 of every row, then rows 100..111, 4 at a time
+  constexpr int RIGHT = MP * (MP - HR) / 4, BOTTOM = (MP - HR) * HR / 4;
+  for (int q = tid; q < RIGHT + BOTTOM; q += THREADS) {
+    const int k = q < RIGHT ? q / 3 : HR + (q - RIGHT) / (HR / 4);
+    const int j = q < RIGHT ? HR + 4 * (q % 3) : 4 * ((q - RIGHT) % (HR / 4));
+    *reinterpret_cast<uint2*>(Dm + k * LDB + j) = make_uint2(0u, 0u);
+  }
+}
+
+// The n depth tiles of a one-pass product; built with -DTPSF_PROBE_NO_BAND
+// none, as band_steps: the results are wrong, and the time is that of
+// everything else in the kernel.
+__device__ __forceinline__ int product_steps(int n) {
+#ifdef TPSF_PROBE_NO_BAND
+  return 0 * n;
+#else
+  return n;
+#endif
+}
+
+// The contact bits of the pixels (i, j0 + 8 nt + e), nt = 0..12, e = 0, 1,
+// as bit 2 nt + e, from mask_and_d's ballot-order words (i < 100, j0 even and
+// < 8).  Pixel p is quad q = p / 4, component c = p % 4; j0 even makes c = 0
+// or 2 for every nt, and quad q0 + 2 nt.  So the bits of e = 0 are every
+// other bit of words 4 (q0 / 32) + c and 4 (q0 / 32 + 1) + c from bit q0 % 32
+// on, and those of e = 1 the same of words + 1: two 8-byte loads.
+__device__ __forceinline__ unsigned row_contact_bits(const unsigned* mask, int i, int j0) {
+  const int p0 = i * HR + j0, q0 = p0 >> 2, c = p0 & 3;
+  const uint2 lo = *reinterpret_cast<const uint2*>(mask + 4 * (q0 >> 5) + c);
+  const uint2 hi = *reinterpret_cast<const uint2*>(mask + 4 * ((q0 >> 5) + 1) + c);
+  const int sh = q0 & 31;  // sh + 24 < 64
+  const uint64_t e0 = ((uint64_t)hi.x << 32 | lo.x) >> sh, e1 = ((uint64_t)hi.y << 32 | lo.y) >> sh;
+  constexpr uint64_t EVEN = 0x1555555u;  // bits 0, 2, ..., 24: one per n-tile
+  return (unsigned)(e0 & EVEN) | (unsigned)(e1 & EVEN) << 1;
+}
+
+// Product 1 of warp mt's stripe: acc[nt] = the 16x8 tile (mt, nt) of
+// T = A . D over the band's depth tiles kt, A from tile kt - mt, D through
+// ldmatrix.trans from D[k][n].  Only the NTM n-tiles that hold map columns:
+// T's columns 104..111 are zero (D's are).
+__device__ __forceinline__ void stripe_t(const __nv_bfloat16* tiles, const __nv_bfloat16* Dm,
+                                         int mt, float acc[NTM][4]) {
+  const int lane = threadIdx.x & 31;
+  const int xrow = lane & 15, xcol = (lane >> 4) * 8;
+#pragma unroll
+  for (int nt = 0; nt < NTM; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  const int kt0 = max(0, mt - BAND_TILES), kt1 = min(MT - 1, mt + BAND_TILES);
+#pragma unroll 1
+  for (int kt = kt0; kt < kt0 + product_steps(kt1 - kt0 + 1); ++kt) {
+    uint32_t a[4];
+    ldsm_x4<false>(a, a_tile(tiles, kt - mt) + xrow * LDT + xcol);
+#pragma unroll
+    for (int np = 0; np < MT; ++np) {
+      uint32_t bb[4];
+      ldsm_x4<true>(bb, Dm + (kt * 16 + xrow) * LDB + np * 16 + xcol);
+      mma_bf16(acc[2 * np], a, bb[0], bb[1]);
+      if (2 * np + 1 < NTM) mma_bf16(acc[2 * np + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+// Product 2 of warp mt's stripe: acc[nt] = the tile (mt, nt) of
+// HR0 / alpha = T . A^T, T's rows as stored, A^T's 16x16 block (kt, np) =
+// A's block (np, kt) = tile kt - np read as stored (n x k), only where
+// |kt - np| <= 4; the NTM n-tiles that hold map columns.
+__device__ __forceinline__ void stripe_hr0(const __nv_bfloat16* Tm, const __nv_bfloat16* tiles,
+                                           int mt, float acc[NTM][4]) {
+  const int lane = threadIdx.x & 31;
+  const int xrow = lane & 15, xcol = (lane >> 4) * 8;
+  const int yrow = (lane & 7) + ((lane >> 4) << 3), ycol = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int nt = 0; nt < NTM; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll 1
+  for (int kt = 0; kt < product_steps(MT); ++kt) {
+    uint32_t a[4];
+    ldsm_x4<false>(a, Tm + (mt * 16 + xrow) * LDB + kt * 16 + xcol);
+#pragma unroll
+    for (int np = 0; np < MT; ++np) {
+      if (np - kt > BAND_TILES || kt - np > BAND_TILES) continue;
+      uint32_t bb[4];
+      ldsm_x4<false>(bb, a_tile(tiles, kt - np) + yrow * LDT + ycol);
+      mma_bf16(acc[2 * np], a, bb[0], bb[1]);
+      if (2 * np + 1 < NTM) mma_bf16(acc[2 * np + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+// Block-wide (max, sum, count) in one round; every thread gets the result.
+// Starts with a barrier, as block_reduce.
+__device__ __forceinline__ void block_reduce3(float& mx, float& sum, float& cnt, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  mx = warp_max(mx);
+  sum = warp_sum(sum);
+  cnt = warp_sum(cnt);
+  __syncthreads();
+  if (lane == 0) {
+    red[warp] = mx;
+    red[RED3 + warp] = sum;
+    red[2 * RED3 + warp] = cnt;
+  }
+  __syncthreads();
+  mx = red[0];
+  sum = red[RED3];
+  cnt = red[2 * RED3];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) {
+    mx = fmaxf(mx, red[w]);
+    sum += red[RED3 + w];
+    cnt += red[2 * RED3 + w];
+  }
+}
+
+__device__ __forceinline__ void tpsf_physics_bf16_onepass(
+    const float* __restrict__ depth, const float* __restrict__ abm, float* __restrict__ hr_out,
+    float* __restrict__ lr_out, float c_psf, float c_mask, float disturbance, float degrade_scale) {
+  using L = OnePassSmem;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  float* r0 = reinterpret_cast<float*>(smem_b + L::R0);
+  __nv_bfloat16* Dm = reinterpret_cast<__nv_bfloat16*>(smem_b + L::R0);  // then T
+  float* Vp = reinterpret_cast<float*>(smem_b + L::R0);                  // at last V's partials
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem_b + L::TILES);
+  float* gpad = reinterpret_cast<float*>(smem_b + L::G);
+  float* Uh = reinterpret_cast<float*>(smem_b + L::U);
+  unsigned* mask = reinterpret_cast<unsigned*>(smem_b + L::MASK);
+  float* red = reinterpret_cast<float*>(smem_b + L::RED);
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem_b + L::MBAR);
+
+  [[maybe_unused]] constexpr int PROBE_LAST = 6;
+  PROBE_INIT();
+  PROBE(0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const size_t b = blockIdx.x;
+  const float alpha = abm[3 * b + 0];
+  const float beta = abm[3 * b + 1];
+  const float m = abm[3 * b + 2];
+
+  // 1. depth -> r0 by one bulk copy, overlapped with gpad, U (rounded: both
+  //    of its uses are products) and A's nine tiles in bf16
+  if (tid == 0) mbar_init(mbar);
+  __syncthreads();
+  if (tid == 0) bulk_load(r0, depth + b * NPIX, mbar);
+  psf_and_mask_taps(gpad, Uh, beta, m, c_psf, c_mask);
+  for (int q = tid; q < TAXELS * HR; q += THREADS) Uh[q] = bf16_round(Uh[q]);  // its own entries
+  __syncthreads();  // gpad published
+  for (int p = tid; p < NOFFS * 16 * 8; p += THREADS) {  // pairs: 9 tiles x 16 rows x 8
+    const int t = p >> 7, r = (p >> 3) & 15, c = 2 * (p & 7);
+    const int o = 16 * (t - BAND_TILES) + c - r;  // k - i, in -79..79
+    *reinterpret_cast<uint32_t*>(tiles + t * TILE + r * LDT + c) =
+        pack_bf16(gpad[GPAD_C + o], gpad[GPAD_C + o + 1]);
+  }
+  mbar_wait(mbar, 0);
+  __syncthreads();  // the map has landed; the tiles and U are published
+  PROBE(1);
+
+  // 2. the max and the mask bits from the f32 map; D in bf16 over it
+  mask_and_d(r0, red, disturbance, mask, Dm);
+  __syncthreads();  // D and the mask published
+  PROBE(2);
+
+  // 3. T = A . D in registers; once every warp has read D, T in bf16 over it
+  float acc[NTM][4];
+  if (warp < MT) stripe_t(tiles, Dm, warp, acc);
+  __syncthreads();  // every read of D is done
+  __nv_bfloat16* Tm = Dm;
+  if (warp < MT) {
+    uint32_t* w = reinterpret_cast<uint32_t*>(Tm + (warp * 16 + g) * LDB) + tg;
+#pragma unroll
+    for (int nt = 0; nt < NTM; ++nt) {
+      w[nt * 4] = pack_bf16(acc[nt][0], acc[nt][1]);
+      w[nt * 4 + 4 * LDB] = pack_bf16(acc[nt][2], acc[nt][3]);  // row + 8
+    }
+    w[NTM * 4] = w[NTM * 4 + 4 * LDB] = 0u;  // columns 104..111, zero as D's
+  }
+  __syncthreads();  // T published
+  PROBE(3);
+
+  // 4. HR0 = alpha T . A^T in registers.  Each thread's places are rows
+  //    i_h = 16 warp + g + 8h and columns j = 8 nt + 2 tg + e (acc[nt][2h + e]);
+  //    bit 2 nt + e of cbits[h] says (i_h, j) is a contact pixel.
+  //    Non-contact pixels give the second max (the contact pixels' zeros are
+  //    its floor: a map has a contact pixel, the max) and sum(HR) without the
+  //    contact pixels; with their count, sum(HR) = that sum + count * second.
+  //    One reduction for all three.  acc keeps alpha HR0 at the non-contact
+  //    pixels and zero elsewhere (the padding included).
+  const bool row_in[2] = {warp * 16 + g < HR, warp * 16 + g + 8 < HR};
+  unsigned cbits[2] = {0u, 0u};
+  float second = 0.f, nsum = 0.f, count = 0.f;
+  if (warp < MT) {
+    stripe_hr0(Tm, tiles, warp, acc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)  // j = 8 nt + 2 tg < 100: n-tile 12 only for tg < 2
+      if (row_in[h])
+        cbits[h] = row_contact_bits(mask, warp * 16 + g + 8 * h, 2 * tg) & (tg < 2 ? 0x3ffffffu : 0xffffffu);
+#pragma unroll
+    for (int nt = 0; nt < NTM; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const bool in = row_in[h] && (nt < NTM - 1 || tg < 2);
+        const float v = alpha * acc[nt][e];
+        const bool open = in && !(cbits[h] >> (2 * nt + (e & 1)) & 1u);
+        if (open) {
+          second = fmaxf(second, v);
+          nsum += v;
+        }
+        acc[nt][e] = open ? v : 0.f;
+      }
+    count = (float)(__popc(cbits[0]) + __popc(cbits[1]));
+  }
+  block_reduce3(second, nsum, count, red);  // its first barrier: every read of T is done
+  const float hsum = nsum + count * second;
+  PROBE(4);
+
+  // 5. HR = contact ? second : HR0, stored from registers (a quad of lanes
+  //    writes 32 contiguous bytes of a row), and zero outside the map; then
+  //    V = U . bf16(HR) on the tensor cores: per 8-column n-tile, B = the
+  //    stripe's 16 x 8 HR (the C fragment transposed by movmatrix is the B
+  //    fragment), A = U's four rows over the stripe's 16 rows.  Each warp
+  //    stores its stripe's partial; LR sums them in a fixed order.
+  if (warp < MT) {
+    float* out = hr_out + b * NPIX;
+    uint32_t ua[4] = {0u, 0u, 0u, 0u};
+    if (g < TAXELS) {
+      const int i0 = warp * 16 + 2 * tg;
+      const float* u = Uh + g * HR;
+      ua[0] = pack_bf16(i0 < HR ? u[i0] : 0.f, i0 + 1 < HR ? u[i0 + 1] : 0.f);
+      ua[2] = pack_bf16(i0 + 8 < HR ? u[i0 + 8] : 0.f, i0 + 9 < HR ? u[i0 + 9] : 0.f);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NTM; ++nt) {
+      uint32_t hb[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned bits = cbits[h] >> (2 * nt);
+        const float v0 = bits & 1u ? second : acc[nt][2 * h];
+        const float v1 = bits & 2u ? second : acc[nt][2 * h + 1];
+        if (row_in[h] && (nt < NTM - 1 || tg < 2))
+          *reinterpret_cast<float2*>(out + (warp * 16 + g + 8 * h) * HR + nt * 8 + 2 * tg) =
+              make_float2(v0, v1);
+        hb[h] = movmatrix_trans(pack_bf16(v0, v1));
+      }
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(c, ua, hb[0], hb[1]);
+      if (g < TAXELS)
+        *reinterpret_cast<float2*>(Vp + (warp * TAXELS + g) * VLD + nt * 8 + 2 * tg) = make_float2(c[0], c[1]);
+    }
+  }
+  __syncthreads();  // V's partials published
+  PROBE(5);
+
+  // 6. LR = (bf16(V) . U^T - mn * sum(HR)) / (1 - mn) * scale, V the sum of
+  //    the stripes' partials in stripe order: warp w gives outputs (a, c)
+  //    and (a, c + 1), a = w / 2, c = 2 (w % 2), from one sum of V's row a
+  const float mn = expf(-100.0f / m);
+  const int a = warp >> 1, c = 2 * (warp & 1);
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int x = lane; x < HR; x += 32) {
+    float v = Vp[a * VLD + x];
+#pragma unroll
+    for (int w = 1; w < MT; ++w) v += Vp[(w * TAXELS + a) * VLD + x];
+    const float vh = bf16_round(v);
+    s0 = fmaf(vh, Uh[c * HR + x], s0);
+    s1 = fmaf(vh, Uh[(c + 1) * HR + x], s1);
+  }
+  s0 = warp_sum(s0);
+  s1 = warp_sum(s1);
+  if (lane == 0) {
+    float* lr = lr_out + b * TAXELS * TAXELS + a * TAXELS + c;
+    lr[0] = (s0 - mn * hsum) / (1.0f - mn) * degrade_scale;
+    lr[1] = (s1 - mn * hsum) / (1.0f - mn) * degrade_scale;
+  }
+  PROBE(PROBE_LAST);
+}
+
+// Three blocks per SM: 80 registers a thread, which ptxas meets without
+// spilling (the build phase of chip_smoke.py and the GPU tests check it).
+__global__ void __launch_bounds__(THREADS, 3)
 tpsf_physics_bf16_kernel(const float* __restrict__ depth, const float* __restrict__ abm,
                          float* __restrict__ hr_out, float* __restrict__ lr_out,
                          float c_psf, float c_mask, float disturbance, float degrade_scale) {
-  tpsf_physics_bf16_body<1>(depth, abm, hr_out, lr_out, c_psf, c_mask, disturbance, degrade_scale);
+  tpsf_physics_bf16_onepass(depth, abm, hr_out, lr_out, c_psf, c_mask, disturbance, degrade_scale);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
