@@ -7,8 +7,8 @@ Phases (any failure exits non-zero and prints no result line):
 1. build      -- compile tactilesr_torch/ops/cuda/tpsf_kernel.cu with nvcc;
                  print each kernel's registers, spill bytes, static and
                  dynamic shared memory and resident blocks per SM; the
-                 backward and the bf16 forward must fit 2 blocks per SM and
-                 no kernel spill
+                 backward must fit 2 blocks per SM, both bf16 forwards 3,
+                 and no kernel spill
 2. kernel     -- the tPSF physics kernel vs its plain PyTorch version at
                  B in {1, 5, 256, 8192} (TF32 off for the plain version;
                  HR rtol/atol 1e-4, LR rtol 1e-4 / atol 1e-6); the backward
@@ -302,6 +302,9 @@ def phase_build():
           f"the backward fits {info['tpsf_physics_bwd']['blocks_per_sm']} blocks per SM (at least 2)")
     check(info["tpsf_physics_bf16"]["blocks_per_sm"] >= 3,
           f"the bf16 forward fits {info['tpsf_physics_bf16']['blocks_per_sm']} blocks per SM (at least 3)")
+    check(info["tpsf_physics_bf16x3"]["blocks_per_sm"] >= 3,
+          f"the three-pass bf16 forward fits {info['tpsf_physics_bf16x3']['blocks_per_sm']} blocks per SM "
+          "(at least 3)")
     return info
 
 

@@ -16,18 +16,19 @@ how many blocks were in flight on average (summed block time over the
 kernel's span) against how many fit; and how far apart blocks start on one
 SM, as a share of the block time.  The backward runs as training calls it
 (LR cotangent, abm gradient).  The bf16 forward kernels (``precision``
-default and high) have no band loops on the CUDA cores; in the one-pass
-kernel's third build its two tensor-core products run no step instead,
-and the three-pass kernel's third column is left out.
+default and high) have no band loops on the CUDA cores; in their third
+build the two tensor-core products run no step instead.
 
 ``--baseline PATH`` names another version of ``tpsf_kernel.cu`` (an earlier
 commit's, unpacked into a directory that git ignores).  It is built too,
-plain and with ``-DTPSF_PROBE``; for the one-pass bf16 kernel the two
-versions are then timed in turns (baseline, this, this, baseline; CUDA
-events) at each batch, and the baseline's phase table, registers and blocks
-per SM are printed beside this version's.  The baseline's one-pass kernel
-is read with the phases of the first bf16 design (``BASELINE_BF16_PHASES``),
-which the three-pass kernel keeps.
+plain and with ``-DTPSF_PROBE``; for each bf16 kernel (one pass and three)
+the two versions are then timed in turns (baseline, this, this, baseline;
+CUDA events) at each batch, and the baseline's phase table, registers and
+blocks per SM are printed beside this version's.  A baseline kernel is read
+with this body's phases or, where it stamps one phase more, with those of
+the first bf16 design (``BASELINE_BF16_PHASES``).  Last, the one-pass
+kernel's HR and LR from both versions are compared bit for bit at B = 5,
+256 and 8192.
 """
 
 from __future__ import annotations
@@ -52,16 +53,19 @@ PHASES = {
         "h2 correlation, pass Q^T", "Q stored, depth copied again", "h1 correlation, dbeta",
     ],
 }
-PHASES["tpsf_physics_bf16"] = [
+# both bf16 kernels run one body (tpsf_physics_bf16_tiled<PLANES>)
+PHASES["tpsf_physics_bf16"] = PHASES["tpsf_physics_bf16x3"] = [
     "depth bulk copy, gpad, U, A tiles", "max, mask bits, D in bf16", "product 1: T = A D, T stored",
     "product 2: HR0, mask bits, 1 reduction", "HR stored, V = U HR (mma)", "LR",
 ]
-# the first bf16 design, which the three-pass kernel keeps (and the one-pass
-# kernel had until it was given its own body)
-BASELINE_BF16_PHASES = PHASES["tpsf_physics_bf16x3"] = [
+# the first bf16 design, which an earlier source's kernels may have
+BASELINE_BF16_PHASES = [
     "depth bulk copy, gpad, U, A in bf16", "max, mask bits, D in bf16", "product 1: T = A D",
     "product 2: HR0, second max", "fixup, sum(HR)", "HR bulk store, V = U HR", "LR",
 ]
+# a bf16 kernel's phases by the number of stamps it writes (one more than phases)
+BF16_PHASES_BY_STAMPS = {len(p) + 1: p for p in (PHASES["tpsf_physics_bf16"], BASELINE_BF16_PHASES)}
+BF16_PASSES = {"tpsf_physics_bf16": 1, "tpsf_physics_bf16x3": 3}
 BF16_BYTES = 4 * (100 * 100 + 3 + 100 * 100 + 16)  # a sample's depth and abm in, HR and LR out
 PEAK_HBM_BPS = 3.35e12  # H100 SXM
 
@@ -95,8 +99,9 @@ def _events_ms(fn, iters):
 def _phase_table(label, phases, lib, probed, plain, rest, iters, b, k_info, n_sm):
     """Times ``plain`` and ``probed`` (and ``rest``), then runs ``probed``
     once with the stamps on and prints the phase table; returns its numbers.
-    ``k_info`` is the kernel's ``kernel_info`` entry (its warps and blocks
-    per SM)."""
+    ``phases`` is the list of phase names, or a dict of such lists by the
+    number of stamps a warp writes.  ``k_info`` is the kernel's
+    ``kernel_info`` entry (its warps and blocks per SM)."""
     dev = torch.device("cuda")
     fit = k_info["blocks_per_sm"] * n_sm
     stamps = torch.zeros(b, k_info["threads"] // 32, PROBE_SLOTS, dtype=torch.int64, device=dev)
@@ -111,6 +116,8 @@ def _phase_table(label, phases, lib, probed, plain, rest, iters, b, k_info, n_sm
     if err:
         raise RuntimeError(f"probe of {label} failed: {lib.tpsf_error_string(err).decode()}")
     s = stamps.cpu().double()  # (block, warp, slot)
+    if isinstance(phases, dict):
+        phases = phases[int((s[0, 0, :PROBE_SLOTS - 3] != 0).sum())]
     n = len(phases)
     per_warp = s[:, :, 1:n + 1] - s[:, :, :n]
     cycles = per_warp.mean((0, 1))
@@ -150,17 +157,18 @@ def probe(batches=(256, 8192), baseline=None):
         base, _ = _compile((), source=baseline)
         base_probe, _ = _compile(("TPSF_PROBE",), source=baseline)
         libs.append(base_probe)
-        base_info = kernel_info(base)["tpsf_physics_bf16"]
+        base_info = kernel_info(base)
     for lb in libs:
         lb.tpsf_set_probe.argtypes = [ctypes.c_void_p]
         lb.tpsf_set_probe.restype = ctypes.c_int
     info = kernel_info()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     if baseline:
-        for label, k in (("this version", info["tpsf_physics_bf16"]), ("baseline", base_info)):
-            print(f"tpsf_physics_bf16, {label}: {k['registers']} registers, {k['blocks_per_sm']} blocks "
-                  f"per SM, {k['dynamic_smem']} B of dynamic shared memory, {k['local_bytes']} B local",
-                  flush=True)
+        for name in BF16_PASSES:
+            for label, k in (("this version", info[name]), ("baseline", base_info[name])):
+                print(f"{name}, {label}: {k['registers']} registers, {k['blocks_per_sm']} blocks "
+                      f"per SM, {k['dynamic_smem']} B of dynamic shared memory, {k['local_bytes']} B "
+                      "local", flush=True)
     report = {}
     for b in batches:
         depth, abm, g_lr = _inputs(b, dev, seed=b)
@@ -186,24 +194,52 @@ def probe(batches=(256, 8192), baseline=None):
             "tpsf_physics_bwd": (bwd(lib), lambda: tpsf_physics_bwd(depth, abm, None, g_lr, need_depth=False),
                                  bwd(no_band)),
             "tpsf_physics_bf16": (bf16(lib, 1), lambda: tpsf_physics(depth, abm, "default"), bf16(no_band, 1)),
-            "tpsf_physics_bf16x3": (bf16(lib, 3), lambda: tpsf_physics(depth, abm, "high"), None),
+            "tpsf_physics_bf16x3": (bf16(lib, 3), lambda: tpsf_physics(depth, abm, "high"), bf16(no_band, 3)),
         }
         iters = 200 if b <= 256 else 20
         for name, (probed, plain, rest) in launches.items():
             report[(name, b)] = _phase_table(name, PHASES[name], lib, probed, plain, rest, iters, b,
                                              info[name], n_sm)
         if baseline:
-            ours, theirs = bf16(build(), 1), bf16(base, 1)
-            turns = [_events_ms(fn, iters) for fn in (theirs, ours, ours, theirs)]
-            bound = b * BF16_BYTES / PEAK_HBM_BPS * 1e3
-            print(f"A/B tpsf_physics_bf16 B={b} (baseline, this, this, baseline): "
-                  + ", ".join(f"{t:.4f}" for t in turns)
-                  + f" ms; byte bound {bound:.4f} ms: this {bound / min(turns[1:3]) * 100:.1f}%, "
-                  f"baseline {bound / min(turns[0], turns[3]) * 100:.1f}% of it", flush=True)
-            report[("tpsf_physics_bf16 A/B", b)] = dict(turns_ms=turns, bound_ms=bound)
-            report[("tpsf_physics_bf16 baseline", b)] = _phase_table(
-                "tpsf_physics_bf16 (baseline)", BASELINE_BF16_PHASES, base_probe, bf16(base_probe, 1),
-                theirs, None, iters, b, base_info, n_sm)
+            for name, passes in BF16_PASSES.items():
+                ours, theirs = bf16(build(), passes), bf16(base, passes)
+                turns = [_events_ms(fn, iters) for fn in (theirs, ours, ours, theirs)]
+                bound = b * BF16_BYTES / PEAK_HBM_BPS * 1e3
+                print(f"A/B {name} B={b} (baseline, this, this, baseline): "
+                      + ", ".join(f"{t:.4f}" for t in turns)
+                      + f" ms; byte bound {bound:.4f} ms: this {bound / min(turns[1:3]) * 100:.1f}%, "
+                      f"baseline {bound / min(turns[0], turns[3]) * 100:.1f}% of it", flush=True)
+                report[(f"{name} A/B", b)] = dict(turns_ms=turns, bound_ms=bound)
+                report[(f"{name} baseline", b)] = _phase_table(
+                    f"{name} (baseline)", BF16_PHASES_BY_STAMPS, base_probe, bf16(base_probe, passes),
+                    theirs, None, iters, b, base_info[name], n_sm)
+    if baseline:
+        report["tpsf_physics_bf16 bitwise"] = _same_bits(build(), base, (5, 256, 8192))
+    return report
+
+
+def _same_bits(lib, base, batches):
+    """Whether the one-pass kernel of ``lib`` and of ``base`` give the same
+    HR and LR bits at each of ``batches``; prints each answer."""
+    dev = torch.device("cuda")
+    same = {}
+    for b in batches:
+        depth, abm, _ = _inputs(b, dev, seed=7 + b)
+        depth = _f32_aligned(depth)
+        outs = []
+        for lb in (lib, base):
+            hr, lr = torch.empty_like(depth), torch.empty(b, 4, 4, device=dev)
+            err = lb.tpsf_physics_bf16_launch(depth.data_ptr(), abm.data_ptr(), hr.data_ptr(), lr.data_ptr(),
+                                              b, 1, C_PSF, C_MASK, DISTURBANCE, DEGRADE_SCALE,
+                                              torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise RuntimeError(f"tpsf_physics_bf16 B={b}: {lb.tpsf_error_string(err).decode()}")
+            outs.append((hr, lr))
+        torch.cuda.synchronize()
+        same[b] = torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+        print(f"tpsf_physics_bf16 B={b}: this version's HR and LR "
+              f"{'equal' if same[b] else 'differ from'} the baseline's bit for bit", flush=True)
+    return same
     return report
 
 

@@ -97,71 +97,78 @@
 // high): the function above, with each of _sample_body's four dots (A . D,
 // T . A^T, U . HR, (U HR) . U^T) rounding its operands to bf16 and summing
 // in f32 -- one pass (hi . hi) or three (hi . hi + hi . lo + lo . hi, with
-// x = hi + lo split in bf16).  T and U HR are f32 sums rounded only as the
-// next product's operand; the mask, the second max, sum(HR) and alpha see
-// f32.  Their plain version is physics_plain(..., precision).
+// x = hi + lo split in bf16; lo . lo is dropped, as in Precision.HIGH).  T
+// and U HR are f32 sums split only as the next product's operand; the
+// mask, the second max, sum(HR) and alpha see f32.  Their plain version is
+// physics_plain(..., precision).
 //
 // What bounds them: bytes.  The two banded products are 3.06 MFLOP per
-// sample, which the bf16 tensor cores (989 TFLOP/s dense) do in 3.1 ns; the
-// 80,076 B of depth in and HR, LR and abm out take 23.9 ns at 3.35 TB/s.
-// Both keep the products off the CUDA cores: one block of 8 warps per
+// sample, which the bf16 tensor cores (989 TFLOP/s dense) do in 3.1 ns a
+// pass (9.3 ns for the three-pass kernel, which issues three times the
+// one-pass kernel's products); the 80,076 B of depth in and HR, LR and abm
+// out take 23.9 ns at 3.35 TB/s.  Both kernels run one body,
+// tpsf_physics_bf16_tiled<PLANES>, with PLANES = 1 or 2 bf16 planes per
+// operand; every PLANES == 2 addition sits under if constexpr, so the
+// one-pass kernel compiles to the same code with or without it.  The
+// body keeps the products off the CUDA cores: one block of 8 warps per
 // sample, depth by a TMA bulk copy (the mask reads it in f32), the maps
 // padded to 112 x 112 in bf16, and seven warps that each own a 16-row
 // stripe of T = A . D and then of HR0 = T . A^T, mma.sync m16n8k16 (bf16,
 // f32 accumulators in registers) on operands loaded by ldmatrix, skipping
-// the 16x16 blocks outside A's band.  T goes back to shared memory in bf16
-// (rounded where the TPU rounds it) and HR0 stays f32 in registers.  So the
-// products are a small part of a block; the rest is what the two designs
-// differ in.
-//
-// The one-pass kernel (tpsf_physics_bf16_kernel) is shaped around the time
-// outside the products, since a block's latency, not its bytes, sets its
-// time (the 256 samples of a training or generation batch fit in one wave):
+// the 16x16 blocks outside A's band; with two planes each step issues
+// hi . hi, hi . lo and lo . hi into the same accumulators.  T goes back to
+// shared memory in bf16 planes (split where the TPU splits it) and HR0
+// stays f32 in registers.  So the products are a small part of a block,
+// whose latency, not its bytes, sets its time (the 256 samples of a
+// training or generation batch fit in one wave); the design is shaped
+// around the time outside the products:
 //   - A(beta) is Toeplitz, A[i][k] = g(k - i), so a 16x16 block of it
 //     depends only on its block offset kt - mt, and only offsets -4..4 are
-//     non-zero: nine 16x16 tiles (6.9 KB, 1,152 pair stores) replace a
-//     112 x 112 plane (26.9 KB, 6,272 pair stores).  Product 1 reads tile
-//     kt - mt as its row operand, product 2 tile kt - np as its column
-//     operand (A^T's block (kt, np) is A's block (np, kt), read as stored).
-//     The padding is no longer zero in A: A's padded rows and columns hold
-//     taps, so T's padded rows and HR0's padded rows and columns are
-//     garbage (finite).  The result stays exact because D's padded rows and
-//     columns are zero, which makes T's padded columns zero, so both
-//     contractions over k >= 100 add nothing, and because the epilogue reads
-//     only i, j < 100.
+//     non-zero: nine 16x16 tiles a plane (6.9 KB, 1,152 pair stores)
+//     replace a 112 x 112 plane (26.9 KB, 6,272 pair stores).  Product 1
+//     reads tile kt - mt as its row operand, product 2 tile kt - np as its
+//     column operand (A^T's block (kt, np) is A's block (np, kt), read as
+//     stored).  The padding is no longer zero in A: A's padded rows and
+//     columns hold taps, in the hi and in the lo tiles, so T's padded rows
+//     and HR0's padded rows and columns are garbage (finite).  The result
+//     stays exact because D's padded rows and columns are zero in both
+//     planes, which makes T's padded columns zero in both, so every
+//     contraction over k >= 100 (hi . hi, hi . lo, lo . hi) adds nothing,
+//     and because the epilogue reads only i, j < 100.
 //   - The epilogue has one block reduction: each thread gathers the contact
 //     bits of its 52 places once into two registers, then takes the second
 //     max over the non-contact HR0 (the contact pixels' zeros are its
 //     floor), their sum and the contact count together; sum(HR) = that sum
 //     + count * second.  HR goes straight from the mma's C registers to
 //     global memory (a quad of lanes writes 32 contiguous bytes of a row),
-//     and V = U . bf16(HR) runs on the tensor cores from the same registers:
-//     movmatrix transposes the C fragment of an 8x8 block into the B
-//     fragment, and each warp stores its stripe's partial of V, which LR
-//     sums in stripe order.  No atomics: the results are bitwise repeatable.
-//   - Shared memory is one 40,000 B region that holds the depth map in f32,
-//     then D in bf16 (written from the registers the mask read the map
-//     into), then T (written once every warp has read D, from the
-//     accumulators), then V's partials; beside it the tiles, gpad, U, the
-//     mask bits, the reduction scratch and the mbarrier: 50,976 B a block.
-//     Registers then set the blocks per SM: three, at 80 a thread.  That
-//     fits because nothing is computed for columns 104..111 (T's are zero,
-//     HR0's unread: 52 accumulators, not 56), the mask bits are kept in the
-//     order the ballots give them, so that a thread gathers a row's 26 bits
-//     with two 8-byte loads and a few shifts, and the epilogue keeps HR0
-//     only at the non-contact pixels (zero elsewhere), so the fixup is one
-//     select an element.  Fourteen warps of half stripes (448 threads, 72
-//     registers, two blocks per SM) measured slower on an H100: a product
+//     and V = U . HR runs on the tensor cores from the same registers:
+//     movmatrix transposes the C fragment of an 8x8 block (of HR's hi, and
+//     of its lo) into the B fragment, and each warp stores its stripe's
+//     partial of V, which LR sums in stripe order.  No atomics: the results
+//     are bitwise repeatable.
+//   - Shared memory is one region that holds the depth map in f32, then
+//     D's planes in bf16 (written from the registers the mask read the map
+//     into), then T's (written once every warp has read D, from the
+//     accumulators), then V's partials: 40,000 B with one plane, 53,760 B
+//     (two 26,880 B planes) with two.  Beside it the tiles, gpad, U's
+//     planes, the mask bits, the reduction scratch and the mbarrier: 50,976
+//     B a block in the one-pass kernel, 73,248 B in the three-pass one.
+//   - Registers then set the blocks per SM.  Nothing is computed for
+//     columns 104..111 (T's are zero, HR0's unread: 52 accumulators, not
+//     56), the mask bits are kept in the order the ballots give them, so
+//     that a thread gathers a row's 26 bits with two 8-byte loads and a few
+//     shifts, and the epilogue keeps HR0 only at the non-contact pixels
+//     (zero elsewhere), so the fixup is one select an element.  The
+//     one-pass kernel fits 80 registers, three blocks per SM.  The
+//     three-pass kernel holds a lo fragment beside each hi one; its
+//     product loops take B's hi and lo fragments one 8-column n-tile at a
+//     time (ldmatrix .x2: four registers, not the eight of two .x4 loads),
+//     so it fits 80 registers too, and three blocks per SM (3 x 73,248 B of
+//     shared memory fit an SM's 228 KB).  Built for two blocks per SM it
+//     took 128 registers and ran B=8192 about 15% slower on an H100.
+//     Fourteen warps of half stripes (448 threads, 72 registers, two blocks
+//     per SM) measured slower on an H100 for the one-pass kernel: a product
 //     phase did not shorten with its warps' share of the tiles.
-//
-// The three-pass kernel (tpsf_physics_bf16x3_kernel) keeps the first
-// design: A(beta) and D written as full bf16 planes (hi and lo), the second
-// max and the fixup as two block reductions with per-element mask lookups,
-// HR staged in shared memory and stored by one bulk copy that overlaps
-// U . HR and LR on the CUDA cores (bf16 x bf16 is exact in f32, so
-// CUDA-core FMAs on rounded operands are the tensor cores' arithmetic up to
-// the order of the sum).  It needs 170 KB of shared memory (one block per
-// SM).
 //
 // Build: nvcc -O3 -gencode arch=compute_90a,code=sm_90a -std=c++17 -shared
 //        -Xcompiler -fPIC -Xptxas -v  (done by tactilesr_torch/ops/cuda/__init__.py)
@@ -952,43 +959,57 @@ tpsf_physics_bwd_kernel(const float* __restrict__ depth, const float* __restrict
 // ------------------------------------------------------------ bf16 forward
 // tpsf_physics_bf16_kernel (one pass) and tpsf_physics_bf16x3_kernel (three
 // passes): the function of tpsf_physics_kernel with the products of
-// _sample_body at precision=DEFAULT and HIGH (see the file's header).  The
-// maps are padded to MP = 112 (seven 16-row tiles) and held in shared
-// memory as bf16 with a row stride of LDB = 120 elements (240 B: the eight
-// rows of an ldmatrix fall on eight different 16-byte bank groups).  In the
-// three-pass kernel the padded rows and columns are zero in every operand,
-// so T's and HR0's are zero too, and the epilogue skips them; the one-pass
-// kernel's A is nine tiles whose padding is not zero (below).
+// _sample_body at precision=DEFAULT and HIGH (see the file's header), one
+// body templated on PLANES, the bf16 planes each operand is split into: 1
+// (hi = bf16(x)) or 2 (hi and lo = bf16(x - hi)).  The maps are padded to
+// MP = 112 (seven 16-row tiles) and held in shared memory as bf16 with a
+// row stride of LDB = 120 elements (240 B: the eight rows of an ldmatrix
+// fall on eight different 16-byte bank groups), a map's lo plane one plane
+// (BMAT elements) after its hi plane.  A(beta) is Toeplitz: A[i][k] =
+// g(k - i), so the 16x16 block (mt, kt) of the padded A is one of nine
+// tiles, by its offset o = kt - mt in -4..4, tile[r][c] = g(16 o + c - r);
+// |o| >= 5 is zero.  With two planes the nine lo tiles follow the nine hi
+// tiles.
 constexpr int MP = 112;
 constexpr int MT = MP / 16;       // 16-row (and 16-deep) tiles of a padded map
 constexpr int LDB = 120;          // bf16 row stride of a padded map
-constexpr int BMAT = MP * LDB;    // bf16 elements of one padded map (26,880 B)
+constexpr int BMAT = MP * LDB;    // bf16 elements of one padded map plane (26,880 B)
 constexpr int BAND_TILES = 4;     // A is zero on 16x16 blocks more than 4 apart (|k - i| >= 65)
-constexpr int PAIRS = MP / 2;     // bf16 pairs a padded row holds
+constexpr int LDT = 24;                        // bf16 row stride of a tile (48 B: an ldmatrix's
+                                               // eight rows on eight bank groups)
+constexpr int TILE = 16 * LDT;                 // bf16 elements a tile
+constexpr int NOFFS = 2 * BAND_TILES + 1;      // nine tiles
+constexpr int NTM = 13;                        // 8-column n-tiles that hold map columns (< 100)
+constexpr int VLD = NTM * 8;                   // V partial row
+constexpr int RED3 = 32;                       // reduction scratch: max, sum, count per warp
 
 __host__ __device__ constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
 
-// Dynamic shared memory of the bf16 kernels, in bytes.  PLANES = 1 (hi) or
-// 2 (hi and lo).  R0 holds D in f32 (the bulk copy's target, read by the
-// mask and the bf16 conversion), then T's planes, then HR in f32 (the bulk
-// store's source).
+// Dynamic shared memory of the bf16 kernels, in bytes.  R0 holds the depth
+// map in f32 (the bulk copy's target), then D's PLANES planes in bf16
+// (written from the registers the mask read the map into), then T's, then
+// the seven warps' partials of V = U . HR.
 template <int PLANES>
-struct Bf16Smem {
-  static constexpr size_t MAP = BMAT * 2;
+struct TiledSmem {
   static constexpr size_t R0 = 0;
-  static constexpr size_t A = R0 + cmax(DEPTH_BYTES, PLANES * MAP);  // A(beta), PLANES maps
-  static constexpr size_t D = A + PLANES * MAP;                      // D, PLANES maps
-  static constexpr size_t G = D + PLANES * MAP;                      // gpad f32 [200]
-  static constexpr size_t U = G + 200 * 4;                           // U hi, U lo f32 [2][4][100]
-  static constexpr size_t V = U + 2 * TAXELS * HR * 4;               // V halves f32 [2][4][100]
-  static constexpr size_t MASK = V + 2 * TAXELS * HR * 4;            // contact-mask bits
-  static constexpr size_t RED = MASK + (MASK_WORDS + 2) * 4;         // block-reduction scratch
-  static constexpr size_t MBAR = RED + 32 * 4;                       // the mbarrier
+  static constexpr size_t REGION = cmax(DEPTH_BYTES, size_t(PLANES) * BMAT * 2);
+  static constexpr size_t TILES = R0 + REGION;                       // A's tiles, bf16 [PLANES][9]
+  static constexpr size_t G = TILES + PLANES * NOFFS * TILE * 2;     // gpad f32 [200]
+  static constexpr size_t U = G + 200 * 4;                           // U's planes, f32 [PLANES][4][100]
+  static constexpr size_t MASK = U + PLANES * TAXELS * HR * 4;       // contact-mask bits
+  static constexpr size_t RED = MASK + (MASK_WORDS + 2) * 4;         // reduction scratch
+  static constexpr size_t MBAR = RED + 3 * RED3 * 4;                 // the mbarrier
   static constexpr size_t BYTES = MBAR + 8;
-  static_assert(A % 16 == 0 && D % 16 == 0 && MAP % 16 == 0, "ldmatrix rows are 16-byte aligned");
+  static_assert(size_t(MT) * TAXELS * VLD * 4 <= REGION, "V's partials fit in the region");
+  static_assert(TILES % 16 == 0 && (TILE * 2) % 16 == 0 && (BMAT * 2) % 16 == 0,
+                "ldmatrix rows are 16-byte aligned");
+  static_assert(MASK % 8 == 0, "row_contact_bits loads two words at once");
   static_assert(MBAR % 8 == 0, "mbarriers are 8-byte aligned");
 };
-constexpr size_t BF16X3_SMEM_BYTES = Bf16Smem<2>::BYTES;  // 169,888 B: one block per SM
+constexpr size_t BF16_SMEM_BYTES = TiledSmem<1>::BYTES;    // 50,976 B: three blocks per SM
+constexpr size_t BF16X3_SMEM_BYTES = TiledSmem<2>::BYTES;  // 73,248 B: three blocks fit an SM
+static_assert(TiledSmem<1>::REGION == DEPTH_BYTES, "one plane of D and T fits where the map landed");
+static_assert(BF16_SMEM_BYTES == 50976 && BF16X3_SMEM_BYTES == 73248, "the layouts of the header note");
 
 __device__ __forceinline__ float bf16_round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
@@ -998,14 +1019,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Stores the pair (a, b) at element pair c2 of row r of the padded maps:
-// hi = bf16(x) into plane 0 and, with two planes, lo = bf16(x - hi) into
-// plane 1 (one map further).
-template <int PLANES>
-__device__ __forceinline__ void store_pair(__nv_bfloat16* map, int r, int c2, float a, float b) {
-  uint32_t* w = reinterpret_cast<uint32_t*>(map + r * LDB) + c2;
-  w[0] = pack_bf16(a, b);
-  if constexpr (PLANES == 2) w[BMAT / 2] = pack_bf16(a - bf16_round(a), b - bf16_round(b));
+// The lo parts of (a, b), bf16(x - bf16(x)), packed as pack_bf16 packs them
+__device__ __forceinline__ uint32_t pack_bf16_lo(float a, float b) {
+  return pack_bf16(a - bf16_round(a), b - bf16_round(b));
 }
 
 // Four 8x8 bf16 matrices from shared memory: lane l gives the address of
@@ -1020,6 +1036,18 @@ __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)) : "memory");
 }
 
+// Two 8x8 bf16 matrices: lanes 0..15 give the addresses (lane l, row l % 8
+// of matrix l / 8).
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x2(uint32_t r[2], const __nv_bfloat16* p) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)) : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)) : "memory");
+}
+
 // c (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col) on the tensor cores
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -1030,7 +1058,9 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
 }
 
 // One product step at the kernel's precision: hi.hi, and with two planes
-// also hi.lo and lo.hi (the HIGH split; lo.lo is dropped, as there).
+// also hi.lo and lo.hi into the same accumulators, in that order (the HIGH
+// split; lo.lo is dropped, as there).  al, bl0 and bl1 are read only with
+// two planes.
 template <int PLANES>
 __device__ __forceinline__ void mma_step(float c[4], const uint32_t ah[4], const uint32_t al[4],
                                          uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
@@ -1041,244 +1071,7 @@ __device__ __forceinline__ void mma_step(float c[4], const uint32_t ah[4], const
   }
 }
 
-// One warp's 16 x 112 stripe of a padded product, rows 16 mt..16 mt + 15:
-// acc[nt] is the 16x8 tile of columns 8 nt..8 nt + 7, in the mma's C
-// layout.  BAND_X: X = A(beta) = Y's left operand, so the depth tiles kt
-// run over the band of mt only (product 1, T = A D, Y = D read through
-// ldmatrix.trans from D[k][n]); otherwise Y = A(beta) is the right operand
-// (product 2, HR0 / alpha = T A^T, A^T[k][n] = A[n][k] read as stored) and
-// each 16-column group np meets the tiles kt of its band.
-template <int PLANES, bool BAND_X>
-__device__ __forceinline__ void stripe_product(const __nv_bfloat16* X, const __nv_bfloat16* Y,
-                                               int mt, float acc[2 * MT][4]) {
-  const int lane = threadIdx.x & 31;
-  const int xrow = lane & 15, xcol = (lane >> 4) * 8;             // A fragments (and trans B)
-  const int yrow = (lane & 7) + ((lane >> 4) << 3), ycol = ((lane >> 3) & 1) * 8;  // B, stored n x k
-#pragma unroll
-  for (int nt = 0; nt < 2 * MT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  const int kt0 = BAND_X ? max(0, mt - BAND_TILES) : 0;
-  const int kt1 = BAND_X ? min(MT - 1, mt + BAND_TILES) : MT - 1;
-#pragma unroll 1
-  for (int kt = kt0; kt <= kt1; ++kt) {
-    uint32_t ah[4], al[4] = {};  // al (and bl) only with two planes
-    ldsm_x4<false>(ah, X + (mt * 16 + xrow) * LDB + kt * 16 + xcol);
-    if constexpr (PLANES == 2) ldsm_x4<false>(al, X + BMAT + (mt * 16 + xrow) * LDB + kt * 16 + xcol);
-#pragma unroll
-    for (int np = 0; np < MT; ++np) {
-      if (!BAND_X && (np - kt > BAND_TILES || kt - np > BAND_TILES)) continue;
-      uint32_t bh[4], bl[4] = {};
-      const __nv_bfloat16* y = BAND_X ? Y + (kt * 16 + xrow) * LDB + np * 16 + xcol
-                                      : Y + (np * 16 + yrow) * LDB + kt * 16 + ycol;
-      ldsm_x4<BAND_X>(bh, y);
-      if constexpr (PLANES == 2) ldsm_x4<BAND_X>(bl, y + BMAT);
-      mma_step<PLANES>(acc[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
-      mma_step<PLANES>(acc[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
-    }
-  }
-}
-
-template <int PLANES>
-__device__ __forceinline__ void tpsf_physics_bf16_body(
-    const float* __restrict__ depth, const float* __restrict__ abm, float* __restrict__ hr_out,
-    float* __restrict__ lr_out, float c_psf, float c_mask, float disturbance, float degrade_scale) {
-  using L = Bf16Smem<PLANES>;
-  extern __shared__ __align__(16) unsigned char smem_b[];
-  float* r0 = reinterpret_cast<float*>(smem_b + L::R0);
-  __nv_bfloat16* Tm = reinterpret_cast<__nv_bfloat16*>(smem_b + L::R0);
-  __nv_bfloat16* Am = reinterpret_cast<__nv_bfloat16*>(smem_b + L::A);
-  __nv_bfloat16* Dm = reinterpret_cast<__nv_bfloat16*>(smem_b + L::D);
-  float* gpad = reinterpret_cast<float*>(smem_b + L::G);
-  float* Uh = reinterpret_cast<float*>(smem_b + L::U);
-  float* Ul = Uh + TAXELS * HR;
-  float* V = reinterpret_cast<float*>(smem_b + L::V);
-  unsigned* mask = reinterpret_cast<unsigned*>(smem_b + L::MASK);
-  float* red = reinterpret_cast<float*>(smem_b + L::RED);
-  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem_b + L::MBAR);
-
-  [[maybe_unused]] constexpr int PROBE_LAST = 7;
-  PROBE_INIT();
-  PROBE(0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t b = blockIdx.x;
-  const float alpha = abm[3 * b + 0];
-  const float beta = abm[3 * b + 1];
-  const float m = abm[3 * b + 2];
-
-  // 1. depth -> r0 by one bulk copy, overlapped with gpad, U (rounded: both
-  //    of its uses are products) and A(beta) in bf16
-  if (tid == 0) mbar_init(mbar);
-  __syncthreads();
-  if (tid == 0) bulk_load(r0, depth + b * NPIX, mbar);
-  psf_and_mask_taps(gpad, Uh, beta, m, c_psf, c_mask);
-  for (int q = tid; q < TAXELS * HR; q += THREADS) {  // the entries this thread wrote
-    const float u = Uh[q], hi = bf16_round(u);
-    Uh[q] = hi;
-    Ul[q] = bf16_round(u - hi);
-  }
-  __syncthreads();  // gpad published
-  for (int p = tid; p < MP * PAIRS; p += THREADS) {
-    const int i = p / PAIRS, k = 2 * (p % PAIRS);
-    const bool in = i < HR && k < HR;  // HR is even: k and k + 1 lie on one side
-    store_pair<PLANES>(Am, i, p % PAIRS, in ? gpad[GPAD_C + k - i] : 0.f,
-                       in ? gpad[GPAD_C + k + 1 - i] : 0.f);
-  }
-  mbar_wait(mbar, 0);
-  __syncthreads();  // the map has landed
-  PROBE(1);
-
-  // 2. the max and the mask bits from the f32 map; D in bf16, padded
-  max_and_mask(r0, red, disturbance, mask);
-  for (int p = tid; p < MP * PAIRS; p += THREADS) {
-    const int k = p / PAIRS, j = 2 * (p % PAIRS);
-    const float2 v = (k < HR && j < HR) ? *reinterpret_cast<const float2*>(r0 + k * HR + j)
-                                        : make_float2(0.f, 0.f);
-    store_pair<PLANES>(Dm, k, p % PAIRS, v.x, v.y);
-  }
-  __syncthreads();  // A and D published; r0 is free
-  PROBE(2);
-
-  // 3. T = A . D, rounded into r0 (T's padded rows and columns are zero)
-  float acc[2 * MT][4];
-  const int g = lane >> 2, tg = lane & 3;
-  if (warp < MT) {
-    stripe_product<PLANES, true>(Am, Dm, warp, acc);
-#pragma unroll
-    for (int nt = 0; nt < 2 * MT; ++nt) {
-      store_pair<PLANES>(Tm, warp * 16 + g, nt * 4 + tg, acc[nt][0], acc[nt][1]);
-      store_pair<PLANES>(Tm, warp * 16 + g + 8, nt * 4 + tg, acc[nt][2], acc[nt][3]);
-    }
-  }
-  __syncthreads();  // T published
-  PROBE(3);
-
-  // 4. HR0 = alpha T . A^T in registers; the second max over where(mask, 0, HR0)
-  float second = -INFINITY;
-  if (warp < MT) {
-    stripe_product<PLANES, false>(Tm, Am, warp, acc);
-#pragma unroll
-    for (int nt = 0; nt < 2 * MT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = warp * 16 + g + (e >> 1) * 8, j = nt * 8 + 2 * tg + (e & 1);
-        const float v = alpha * acc[nt][e];
-        acc[nt][e] = v;
-        if (i < HR && j < HR) {
-          const int px = i * HR + j;
-          second = fmaxf(second, (mask[px >> 5] >> (px & 31)) & 1u ? 0.f : v);
-        }
-      }
-  }
-  second = block_reduce<true>(second, red);  // its first barrier: every read of T is done
-  PROBE(4);
-
-  // 5. fixup; HR goes row-major into r0
-  float hsum = 0.f;
-  if (warp < MT) {
-#pragma unroll
-    for (int nt = 0; nt < 2 * MT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = warp * 16 + g + h * 8, j = nt * 8 + 2 * tg;
-        if (i < HR && j < HR) {
-          const int px = i * HR + j;
-          const unsigned bits = mask[px >> 5] >> (px & 31);  // px is even: px + 1 is in the same word
-          const float v0 = bits & 1u ? second : acc[nt][2 * h];
-          const float v1 = bits & 2u ? second : acc[nt][2 * h + 1];
-          hsum += v0;
-          hsum += v1;
-          *reinterpret_cast<float2*>(r0 + px) = make_float2(v0, v1);
-        }
-      }
-  }
-  fence_proxy_async();  // HR in r0 is read next by the bulk store
-  hsum = block_reduce<false>(hsum, red);  // its barriers publish the final HR
-  PROBE(5);
-
-  // 6. HR to global by one bulk store in the background; V = U . HR with
-  //    both operands rounded, as two halves of the sum over y
-  if (tid == 0) bulk_store(hr_out + b * NPIX, r0);
-  constexpr int Y_SPLIT = 52;
-  if (tid < 2 * HR) {
-    const int x = tid % HR, h = tid / HR;
-    float a[TAXELS] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int y = h * Y_SPLIT; y < (h ? HR : Y_SPLIT); ++y) {
-      const float v = r0[y * HR + x], vh = bf16_round(v);
-#pragma unroll
-      for (int t = 0; t < TAXELS; ++t) {
-        a[t] = fmaf(Uh[t * HR + y], vh, a[t]);
-        if constexpr (PLANES == 2) {
-          a[t] = fmaf(Uh[t * HR + y], bf16_round(v - vh), a[t]);
-          a[t] = fmaf(Ul[t * HR + y], vh, a[t]);
-        }
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < TAXELS; ++t) V[(h * TAXELS + t) * HR + x] = a[t];
-  }
-  __syncthreads();
-  PROBE(6);
-
-  // 7. LR = (bf16(V) . U^T - mn * sum(HR)) / (1 - mn) * scale: warp w gives
-  //    outputs 2w and 2w + 1
-  const float mn = expf(-100.0f / m);
-#pragma unroll 1
-  for (int o = 2 * warp; o < 2 * warp + 2; ++o) {
-    const int a = o / TAXELS, c = o % TAXELS;
-    float s = 0.f;
-#pragma unroll
-    for (int x = lane; x < HR; x += 32) {
-      const float v = V[a * HR + x] + V[(TAXELS + a) * HR + x], vh = bf16_round(v);
-      s = fmaf(vh, Uh[c * HR + x], s);
-      if constexpr (PLANES == 2) {
-        s = fmaf(vh, Ul[c * HR + x], s);
-        s = fmaf(bf16_round(v - vh), Uh[c * HR + x], s);
-      }
-    }
-    s = warp_sum(s);
-    if (lane == 0) lr_out[b * TAXELS * TAXELS + o] = (s - mn * hsum) / (1.0f - mn) * degrade_scale;
-  }
-  if (tid == 0) bulk_store_wait();  // r0 stays until the store has read it
-  PROBE(PROBE_LAST);
-}
-
-// ------------------------------------------------- one-pass bf16 forward
-// tpsf_physics_bf16_kernel's own body (precision=DEFAULT); see the file's
-// header for the design.  A(beta) is Toeplitz: A[i][k] = g(k - i), so the
-// 16x16 block (mt, kt) of the padded A is one of nine tiles, by its offset
-// o = kt - mt in -4..4, tile[r][c] = g(16 o + c - r); |o| >= 5 is zero.
-constexpr int LDT = 24;                        // bf16 row stride of a tile (48 B: an ldmatrix's
-                                               // eight rows on eight bank groups)
-constexpr int TILE = 16 * LDT;                 // bf16 elements a tile
-constexpr int NOFFS = 2 * BAND_TILES + 1;      // nine tiles
-constexpr int NTM = 13;                        // 8-column n-tiles that hold map columns (< 100)
-constexpr int VLD = NTM * 8;                   // V partial row
-constexpr int RED3 = 32;                       // reduction scratch: max, sum, count per warp
-
-// Dynamic shared memory of the one-pass kernel, in bytes.  R0 holds the
-// depth map in f32 (the bulk copy's target), then D in bf16 (written from
-// the registers the mask read it into), then T in bf16, then the seven
-// warps' partials of V = U . HR.
-struct OnePassSmem {
-  static constexpr size_t R0 = 0;
-  static constexpr size_t TILES = R0 + DEPTH_BYTES;                 // A's nine tiles, bf16
-  static constexpr size_t G = TILES + NOFFS * TILE * 2;             // gpad f32 [200]
-  static constexpr size_t U = G + 200 * 4;                          // U rounded to bf16, f32 [4][100]
-  static constexpr size_t MASK = U + TAXELS * HR * 4;               // contact-mask bits
-  static constexpr size_t RED = MASK + (MASK_WORDS + 2) * 4;        // reduction scratch
-  static constexpr size_t MBAR = RED + 3 * RED3 * 4;                // the mbarrier
-  static constexpr size_t BYTES = MBAR + 8;
-  static_assert(size_t(BMAT) * 2 <= DEPTH_BYTES, "D and T fit where the depth map landed");
-  static_assert(size_t(MT) * TAXELS * VLD * 4 <= DEPTH_BYTES, "V's partials fit there too");
-  static_assert(TILES % 16 == 0 && (TILE * 2) % 16 == 0, "ldmatrix rows are 16-byte aligned");
-  static_assert(MASK % 8 == 0, "row_contact_bits loads two words at once");
-  static_assert(MBAR % 8 == 0, "mbarriers are 8-byte aligned");
-};
-constexpr size_t BF16_SMEM_BYTES = OnePassSmem::BYTES;  // 50,976 B
-
-// Block offset o's tile.
+// Block offset o's tile (of the hi set; the lo set starts NOFFS tiles on).
 __device__ __forceinline__ const __nv_bfloat16* a_tile(const __nv_bfloat16* tiles, int o) {
   return tiles + (o + BAND_TILES) * TILE;
 }
@@ -1292,12 +1085,13 @@ __device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
   return y;
 }
 
-// The max and the contact-mask bits of the f32 map in r0, then D in bf16
+// The max and the contact-mask bits of the f32 map in r0, then D's planes
 // over it, padded to MP x MP with zeros, written from the registers the map
 // was read into.  The caller publishes D and the mask.  The map goes in
 // chunks of 128 pixels as in max_and_mask, but the bits stay in ballot
 // order: pixel p = 128 ch + 4 l + c is bit l of word 4 ch + c
 // (row_contact_bits reads them).
+template <int PLANES>
 __device__ __forceinline__ void mask_and_d(const float* r0, float* red, float disturbance,
                                            unsigned* mask, __nv_bfloat16* Dm) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1320,9 +1114,13 @@ __device__ __forceinline__ void mask_and_d(const float* r0, float* red, float di
       const unsigned bw = __ballot_sync(0xffffffffu, v[i].w > thr);
       if (lane < 4) mask[4 * ch + lane] = lane == 0 ? bx : lane == 1 ? by : lane == 2 ? bz : bw;
     }
-    if (p < NPIX)  // four pixels of one row (HR is a multiple of 4): 8 bytes
+    if (p < NPIX) {  // four pixels of one row (HR is a multiple of 4): 8 bytes a plane
       *reinterpret_cast<uint2*>(Dm + (p / HR) * LDB + p % HR) =
           make_uint2(pack_bf16(v[i].x, v[i].y), pack_bf16(v[i].z, v[i].w));
+      if constexpr (PLANES == 2)
+        *reinterpret_cast<uint2*>(Dm + BMAT + (p / HR) * LDB + p % HR) =
+            make_uint2(pack_bf16_lo(v[i].x, v[i].y), pack_bf16_lo(v[i].z, v[i].w));
+    }
   }
   // the padding: columns 100..111 of every row, then rows 100..111, 4 at a time
   constexpr int RIGHT = MP * (MP - HR) / 4, BOTTOM = (MP - HR) * HR / 4;
@@ -1330,12 +1128,13 @@ __device__ __forceinline__ void mask_and_d(const float* r0, float* red, float di
     const int k = q < RIGHT ? q / 3 : HR + (q - RIGHT) / (HR / 4);
     const int j = q < RIGHT ? HR + 4 * (q % 3) : 4 * ((q - RIGHT) % (HR / 4));
     *reinterpret_cast<uint2*>(Dm + k * LDB + j) = make_uint2(0u, 0u);
+    if constexpr (PLANES == 2) *reinterpret_cast<uint2*>(Dm + BMAT + k * LDB + j) = make_uint2(0u, 0u);
   }
 }
 
-// The n depth tiles of a one-pass product; built with -DTPSF_PROBE_NO_BAND
-// none, as band_steps: the results are wrong, and the time is that of
-// everything else in the kernel.
+// The n depth tiles of a product; built with -DTPSF_PROBE_NO_BAND none, as
+// band_steps: the results are wrong, and the time is that of everything
+// else in the kernel.
 __device__ __forceinline__ int product_steps(int n) {
 #ifdef TPSF_PROBE_NO_BAND
   return 0 * n;
@@ -1362,8 +1161,10 @@ __device__ __forceinline__ unsigned row_contact_bits(const unsigned* mask, int i
 
 // Product 1 of warp mt's stripe: acc[nt] = the 16x8 tile (mt, nt) of
 // T = A . D over the band's depth tiles kt, A from tile kt - mt, D through
-// ldmatrix.trans from D[k][n].  Only the NTM n-tiles that hold map columns:
+// ldmatrix.trans from D[k][n]; with two planes A's lo tiles and D's lo
+// plane beside the hi ones.  Only the NTM n-tiles that hold map columns:
 // T's columns 104..111 are zero (D's are).
+template <int PLANES>
 __device__ __forceinline__ void stripe_t(const __nv_bfloat16* tiles, const __nv_bfloat16* Dm,
                                          int mt, float acc[NTM][4]) {
   const int lane = threadIdx.x & 31;
@@ -1375,14 +1176,25 @@ __device__ __forceinline__ void stripe_t(const __nv_bfloat16* tiles, const __nv_
   const int kt0 = max(0, mt - BAND_TILES), kt1 = min(MT - 1, mt + BAND_TILES);
 #pragma unroll 1
   for (int kt = kt0; kt < kt0 + product_steps(kt1 - kt0 + 1); ++kt) {
-    uint32_t a[4];
+    uint32_t a[4], al[4] = {};  // al (and hl in the epilogue) only with two planes
     ldsm_x4<false>(a, a_tile(tiles, kt - mt) + xrow * LDT + xcol);
+    if constexpr (PLANES == 2) ldsm_x4<false>(al, a_tile(tiles + NOFFS * TILE, kt - mt) + xrow * LDT + xcol);
+    if constexpr (PLANES == 1) {
 #pragma unroll
-    for (int np = 0; np < MT; ++np) {
-      uint32_t bb[4];
-      ldsm_x4<true>(bb, Dm + (kt * 16 + xrow) * LDB + np * 16 + xcol);
-      mma_bf16(acc[2 * np], a, bb[0], bb[1]);
-      if (2 * np + 1 < NTM) mma_bf16(acc[2 * np + 1], a, bb[2], bb[3]);
+      for (int np = 0; np < MT; ++np) {
+        uint32_t bb[4];
+        ldsm_x4<true>(bb, Dm + (kt * 16 + xrow) * LDB + np * 16 + xcol);
+        mma_bf16(acc[2 * np], a, bb[0], bb[1]);
+        if (2 * np + 1 < NTM) mma_bf16(acc[2 * np + 1], a, bb[2], bb[3]);
+      }
+    } else {  // one n-tile at a time: hi and lo B fragments in 4 registers
+#pragma unroll
+      for (int nt = 0; nt < NTM; ++nt) {
+        uint32_t bh[2], bl[2];
+        ldsm_x2<true>(bh, Dm + (kt * 16 + xrow) * LDB + nt * 8);
+        ldsm_x2<true>(bl, Dm + BMAT + (kt * 16 + xrow) * LDB + nt * 8);
+        mma_step<PLANES>(acc[nt], a, al, bh[0], bh[1], bl[0], bl[1]);
+      }
     }
   }
 }
@@ -1390,7 +1202,9 @@ __device__ __forceinline__ void stripe_t(const __nv_bfloat16* tiles, const __nv_
 // Product 2 of warp mt's stripe: acc[nt] = the tile (mt, nt) of
 // HR0 / alpha = T . A^T, T's rows as stored, A^T's 16x16 block (kt, np) =
 // A's block (np, kt) = tile kt - np read as stored (n x k), only where
-// |kt - np| <= 4; the NTM n-tiles that hold map columns.
+// |kt - np| <= 4; with two planes T's lo plane and A's lo tiles beside the
+// hi ones.  The NTM n-tiles that hold map columns.
+template <int PLANES>
 __device__ __forceinline__ void stripe_hr0(const __nv_bfloat16* Tm, const __nv_bfloat16* tiles,
                                            int mt, float acc[NTM][4]) {
   const int lane = threadIdx.x & 31;
@@ -1402,15 +1216,28 @@ __device__ __forceinline__ void stripe_hr0(const __nv_bfloat16* Tm, const __nv_b
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 #pragma unroll 1
   for (int kt = 0; kt < product_steps(MT); ++kt) {
-    uint32_t a[4];
+    uint32_t a[4], al[4] = {};
     ldsm_x4<false>(a, Tm + (mt * 16 + xrow) * LDB + kt * 16 + xcol);
+    if constexpr (PLANES == 2) ldsm_x4<false>(al, Tm + BMAT + (mt * 16 + xrow) * LDB + kt * 16 + xcol);
 #pragma unroll
     for (int np = 0; np < MT; ++np) {
       if (np - kt > BAND_TILES || kt - np > BAND_TILES) continue;
-      uint32_t bb[4];
-      ldsm_x4<false>(bb, a_tile(tiles, kt - np) + yrow * LDT + ycol);
-      mma_bf16(acc[2 * np], a, bb[0], bb[1]);
-      if (2 * np + 1 < NTM) mma_bf16(acc[2 * np + 1], a, bb[2], bb[3]);
+      if constexpr (PLANES == 1) {
+        uint32_t bb[4];
+        ldsm_x4<false>(bb, a_tile(tiles, kt - np) + yrow * LDT + ycol);
+        mma_bf16(acc[2 * np], a, bb[0], bb[1]);
+        if (2 * np + 1 < NTM) mma_bf16(acc[2 * np + 1], a, bb[2], bb[3]);
+      } else {  // one n-tile at a time: hi and lo B fragments in 4 registers
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (2 * np + h >= NTM) continue;
+          uint32_t bh[2], bl[2];
+          const int at = (8 * h + (lane & 7)) * LDT + ((lane >> 3) & 1) * 8;
+          ldsm_x2<false>(bh, a_tile(tiles, kt - np) + at);
+          ldsm_x2<false>(bl, a_tile(tiles + NOFFS * TILE, kt - np) + at);
+          mma_step<PLANES>(acc[2 * np + h], a, al, bh[0], bh[1], bl[0], bl[1]);
+        }
+      }
     }
   }
 }
@@ -1440,10 +1267,11 @@ __device__ __forceinline__ void block_reduce3(float& mx, float& sum, float& cnt,
   }
 }
 
-__device__ __forceinline__ void tpsf_physics_bf16_onepass(
+template <int PLANES>
+__device__ __forceinline__ void tpsf_physics_bf16_tiled(
     const float* __restrict__ depth, const float* __restrict__ abm, float* __restrict__ hr_out,
     float* __restrict__ lr_out, float c_psf, float c_mask, float disturbance, float degrade_scale) {
-  using L = OnePassSmem;
+  using L = TiledSmem<PLANES>;
   extern __shared__ __align__(16) unsigned char smem_b[];
   float* r0 = reinterpret_cast<float*>(smem_b + L::R0);
   __nv_bfloat16* Dm = reinterpret_cast<__nv_bfloat16*>(smem_b + L::R0);  // then T
@@ -1451,6 +1279,7 @@ __device__ __forceinline__ void tpsf_physics_bf16_onepass(
   __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem_b + L::TILES);
   float* gpad = reinterpret_cast<float*>(smem_b + L::G);
   float* Uh = reinterpret_cast<float*>(smem_b + L::U);
+  [[maybe_unused]] float* Ul = Uh + TAXELS * HR;  // U's lo plane, with two planes
   unsigned* mask = reinterpret_cast<unsigned*>(smem_b + L::MASK);
   float* red = reinterpret_cast<float*>(smem_b + L::RED);
   uint64_t* mbar = reinterpret_cast<uint64_t*>(smem_b + L::MBAR);
@@ -1465,32 +1294,40 @@ __device__ __forceinline__ void tpsf_physics_bf16_onepass(
   const float beta = abm[3 * b + 1];
   const float m = abm[3 * b + 2];
 
-  // 1. depth -> r0 by one bulk copy, overlapped with gpad, U (rounded: both
-  //    of its uses are products) and A's nine tiles in bf16
+  // 1. depth -> r0 by one bulk copy, overlapped with gpad, U's planes (both
+  //    of its uses are products) and A's tiles in bf16
   if (tid == 0) mbar_init(mbar);
   __syncthreads();
   if (tid == 0) bulk_load(r0, depth + b * NPIX, mbar);
   psf_and_mask_taps(gpad, Uh, beta, m, c_psf, c_mask);
-  for (int q = tid; q < TAXELS * HR; q += THREADS) Uh[q] = bf16_round(Uh[q]);  // its own entries
+  for (int q = tid; q < TAXELS * HR; q += THREADS) {  // its own entries
+    if constexpr (PLANES == 2) Ul[q] = bf16_round(Uh[q] - bf16_round(Uh[q]));
+    Uh[q] = bf16_round(Uh[q]);
+  }
   __syncthreads();  // gpad published
   for (int p = tid; p < NOFFS * 16 * 8; p += THREADS) {  // pairs: 9 tiles x 16 rows x 8
     const int t = p >> 7, r = (p >> 3) & 15, c = 2 * (p & 7);
     const int o = 16 * (t - BAND_TILES) + c - r;  // k - i, in -79..79
     *reinterpret_cast<uint32_t*>(tiles + t * TILE + r * LDT + c) =
         pack_bf16(gpad[GPAD_C + o], gpad[GPAD_C + o + 1]);
+    if constexpr (PLANES == 2)
+      *reinterpret_cast<uint32_t*>(tiles + (NOFFS + t) * TILE + r * LDT + c) =
+          pack_bf16_lo(gpad[GPAD_C + o], gpad[GPAD_C + o + 1]);
   }
   mbar_wait(mbar, 0);
   __syncthreads();  // the map has landed; the tiles and U are published
   PROBE(1);
 
-  // 2. the max and the mask bits from the f32 map; D in bf16 over it
-  mask_and_d(r0, red, disturbance, mask, Dm);
+  // 2. the max and the mask bits from the f32 map; D's planes over it
+  mask_and_d<PLANES>(r0, red, disturbance, mask, Dm);
   __syncthreads();  // D and the mask published
   PROBE(2);
 
-  // 3. T = A . D in registers; once every warp has read D, T in bf16 over it
+  // 3. T = A . D in registers; once every warp has read D, T's planes over
+  //    it (hi, and lo = bf16(T - hi): T is an f32 sum split only as product
+  //    2's operand)
   float acc[NTM][4];
-  if (warp < MT) stripe_t(tiles, Dm, warp, acc);
+  if (warp < MT) stripe_t<PLANES>(tiles, Dm, warp, acc);
   __syncthreads();  // every read of D is done
   __nv_bfloat16* Tm = Dm;
   if (warp < MT) {
@@ -1499,8 +1336,13 @@ __device__ __forceinline__ void tpsf_physics_bf16_onepass(
     for (int nt = 0; nt < NTM; ++nt) {
       w[nt * 4] = pack_bf16(acc[nt][0], acc[nt][1]);
       w[nt * 4 + 4 * LDB] = pack_bf16(acc[nt][2], acc[nt][3]);  // row + 8
+      if constexpr (PLANES == 2) {
+        w[BMAT / 2 + nt * 4] = pack_bf16_lo(acc[nt][0], acc[nt][1]);
+        w[BMAT / 2 + nt * 4 + 4 * LDB] = pack_bf16_lo(acc[nt][2], acc[nt][3]);
+      }
     }
     w[NTM * 4] = w[NTM * 4 + 4 * LDB] = 0u;  // columns 104..111, zero as D's
+    if constexpr (PLANES == 2) w[BMAT / 2 + NTM * 4] = w[BMAT / 2 + NTM * 4 + 4 * LDB] = 0u;
   }
   __syncthreads();  // T published
   PROBE(3);
@@ -1517,7 +1359,7 @@ __device__ __forceinline__ void tpsf_physics_bf16_onepass(
   unsigned cbits[2] = {0u, 0u};
   float second = 0.f, nsum = 0.f, count = 0.f;
   if (warp < MT) {
-    stripe_hr0(Tm, tiles, warp, acc);
+    stripe_hr0<PLANES>(Tm, tiles, warp, acc);
 #pragma unroll
     for (int h = 0; h < 2; ++h)  // j = 8 nt + 2 tg < 100: n-tile 12 only for tg < 2
       if (row_in[h])
@@ -1544,22 +1386,28 @@ __device__ __forceinline__ void tpsf_physics_bf16_onepass(
 
   // 5. HR = contact ? second : HR0, stored from registers (a quad of lanes
   //    writes 32 contiguous bytes of a row), and zero outside the map; then
-  //    V = U . bf16(HR) on the tensor cores: per 8-column n-tile, B = the
-  //    stripe's 16 x 8 HR (the C fragment transposed by movmatrix is the B
-  //    fragment), A = U's four rows over the stripe's 16 rows.  Each warp
-  //    stores its stripe's partial; LR sums them in a fixed order.
+  //    V = U . HR on the tensor cores, HR split into PLANES planes: per
+  //    8-column n-tile, B = the stripe's 16 x 8 HR (the C fragment
+  //    transposed by movmatrix is the B fragment), A = U's four rows over
+  //    the stripe's 16 rows.  Each warp stores its stripe's partial; LR sums
+  //    them in a fixed order.
   if (warp < MT) {
     float* out = hr_out + b * NPIX;
-    uint32_t ua[4] = {0u, 0u, 0u, 0u};
+    uint32_t ua[4] = {0u, 0u, 0u, 0u}, ul[4] = {0u, 0u, 0u, 0u};
     if (g < TAXELS) {
       const int i0 = warp * 16 + 2 * tg;
       const float* u = Uh + g * HR;
       ua[0] = pack_bf16(i0 < HR ? u[i0] : 0.f, i0 + 1 < HR ? u[i0 + 1] : 0.f);
       ua[2] = pack_bf16(i0 + 8 < HR ? u[i0 + 8] : 0.f, i0 + 9 < HR ? u[i0 + 9] : 0.f);
+      if constexpr (PLANES == 2) {
+        const float* v = Ul + g * HR;
+        ul[0] = pack_bf16(i0 < HR ? v[i0] : 0.f, i0 + 1 < HR ? v[i0 + 1] : 0.f);
+        ul[2] = pack_bf16(i0 + 8 < HR ? v[i0 + 8] : 0.f, i0 + 9 < HR ? v[i0 + 9] : 0.f);
+      }
     }
 #pragma unroll
     for (int nt = 0; nt < NTM; ++nt) {
-      uint32_t hb[2];
+      uint32_t hb[2], hl[2] = {0u, 0u};
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const unsigned bits = cbits[h] >> (2 * nt);
@@ -1569,9 +1417,10 @@ __device__ __forceinline__ void tpsf_physics_bf16_onepass(
           *reinterpret_cast<float2*>(out + (warp * 16 + g + 8 * h) * HR + nt * 8 + 2 * tg) =
               make_float2(v0, v1);
         hb[h] = movmatrix_trans(pack_bf16(v0, v1));
+        if constexpr (PLANES == 2) hl[h] = movmatrix_trans(pack_bf16_lo(v0, v1));
       }
       float c[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(c, ua, hb[0], hb[1]);
+      mma_step<PLANES>(c, ua, ul, hb[0], hb[1], hl[0], hl[1]);
       if (g < TAXELS)
         *reinterpret_cast<float2*>(Vp + (warp * TAXELS + g) * VLD + nt * 8 + 2 * tg) = make_float2(c[0], c[1]);
     }
@@ -1579,9 +1428,10 @@ __device__ __forceinline__ void tpsf_physics_bf16_onepass(
   __syncthreads();  // V's partials published
   PROBE(5);
 
-  // 6. LR = (bf16(V) . U^T - mn * sum(HR)) / (1 - mn) * scale, V the sum of
-  //    the stripes' partials in stripe order: warp w gives outputs (a, c)
-  //    and (a, c + 1), a = w / 2, c = 2 (w % 2), from one sum of V's row a
+  // 6. LR = (V . U^T at the kernel's precision - mn * sum(HR)) / (1 - mn)
+  //    * scale, V the sum of the stripes' partials in stripe order: warp w
+  //    gives outputs (a, c) and (a, c + 1), a = w / 2, c = 2 (w % 2), from
+  //    one sum of V's row a
   const float mn = expf(-100.0f / m);
   const int a = warp >> 1, c = 2 * (warp & 1);
   float s0 = 0.f, s1 = 0.f;
@@ -1592,7 +1442,15 @@ __device__ __forceinline__ void tpsf_physics_bf16_onepass(
     for (int w = 1; w < MT; ++w) v += Vp[(w * TAXELS + a) * VLD + x];
     const float vh = bf16_round(v);
     s0 = fmaf(vh, Uh[c * HR + x], s0);
+    if constexpr (PLANES == 2) {
+      s0 = fmaf(vh, Ul[c * HR + x], s0);
+      s0 = fmaf(bf16_round(v - vh), Uh[c * HR + x], s0);
+    }
     s1 = fmaf(vh, Uh[(c + 1) * HR + x], s1);
+    if constexpr (PLANES == 2) {
+      s1 = fmaf(vh, Ul[(c + 1) * HR + x], s1);
+      s1 = fmaf(bf16_round(v - vh), Uh[(c + 1) * HR + x], s1);
+    }
   }
   s0 = warp_sum(s0);
   s1 = warp_sum(s1);
@@ -1610,14 +1468,15 @@ __global__ void __launch_bounds__(THREADS, 3)
 tpsf_physics_bf16_kernel(const float* __restrict__ depth, const float* __restrict__ abm,
                          float* __restrict__ hr_out, float* __restrict__ lr_out,
                          float c_psf, float c_mask, float disturbance, float degrade_scale) {
-  tpsf_physics_bf16_onepass(depth, abm, hr_out, lr_out, c_psf, c_mask, disturbance, degrade_scale);
+  tpsf_physics_bf16_tiled<1>(depth, abm, hr_out, lr_out, c_psf, c_mask, disturbance, degrade_scale);
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+// Three blocks per SM too: 80 registers a thread (the same checks).
+__global__ void __launch_bounds__(THREADS, 3)
 tpsf_physics_bf16x3_kernel(const float* __restrict__ depth, const float* __restrict__ abm,
                            float* __restrict__ hr_out, float* __restrict__ lr_out,
                            float c_psf, float c_mask, float disturbance, float degrade_scale) {
-  tpsf_physics_bf16_body<2>(depth, abm, hr_out, lr_out, c_psf, c_mask, disturbance, degrade_scale);
+  tpsf_physics_bf16_tiled<2>(depth, abm, hr_out, lr_out, c_psf, c_mask, disturbance, degrade_scale);
 }
 
 template <typename K>

@@ -1,20 +1,26 @@
-"""The blocking of the one-pass bf16 physics kernel
-(``tactilesr_torch/ops/cuda/tpsf_kernel.cu``, ``tpsf_physics_bf16_kernel``,
-``physics_precision: default``), modelled in plain PyTorch on the CPU.
+"""The blocking of the bf16 physics kernels
+(``tactilesr_torch/ops/cuda/tpsf_kernel.cu``: ``tpsf_physics_bf16_kernel``,
+``physics_precision: default``, and ``tpsf_physics_bf16x3_kernel``,
+``physics_precision: high``, one body ``tpsf_physics_bf16_tiled<PLANES>``),
+modelled in plain PyTorch on the CPU.
 
-The kernel cannot run here, so this file keeps a model of its arithmetic
-(not in the package) and holds it against the plain version
-``physics_plain(depth, abm, "default")``:
+The kernels cannot run here, so this file keeps a model of their
+arithmetic (not in the package) and holds it against the plain version
+``physics_plain(depth, abm, precision)``.  Each operand x of a product is
+split into ``planes`` bf16 planes: hi = bf16(x) at ``default``, and also
+lo = bf16(x - hi) at ``high``, where a product is hi . hi + hi . lo +
+lo . hi in f32 (lo . lo dropped):
 
-- A(beta) is built from nine 16x16 Toeplitz tiles (block offsets -4..4),
-  so A's padded rows and columns (100..111) hold taps, not zeros; D is
-  padded to 112 with zeros;
-- T = A . D is rounded to bf16 as the next product's operand;
+- A(beta) is built from nine 16x16 Toeplitz tiles a plane (block offsets
+  -4..4), so A's padded rows and columns (100..111) hold taps, not zeros,
+  in every plane; D's planes are padded to 112 with zeros;
+- T = A . D is an f32 sum, split into planes as the next product's operand;
 - the epilogue reads only i, j < 100: the second max over the non-contact
   HR0 with the contact pixels' zeros as its floor, and
   sum(HR) = sum of the non-contact HR0 + count * second;
-- V = U . bf16(HR) is the sum of the seven 16-row stripes' partials, taken
-  in stripe order, and LR = (bf16(V) . U^T - mn sum(HR)) / (1 - mn) 1e-4.
+- V = U . HR (both split) is the sum of the seven 16-row stripes'
+  partials, taken in stripe order, and LR = (V . U^T, both split, -
+  mn sum(HR)) / (1 - mn) 1e-4.
 
 The model and the plain version compute the same function with f32 sums
 in other orders, so they agree within 1e-5 of the largest |HR| and |LR|.
@@ -45,19 +51,38 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
+PRECISIONS = ("default", "high")
+PLANES = {"default": 1, "high": 2}
+
+
 def _bf16(x):
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def _tiles(beta):
-    """(B,) beta -> (B, 9, 16, 16): tile t (block offset o = t - 4) holds
-    bf16(g(16 o + c - r)) at (r, c), g(d) = exp(-C_PSF d^2 / beta^2) for
+def _split(x, planes):
+    """x as its bf16 planes: [hi], or [hi, lo] with lo = bf16(x - hi)."""
+    hi = _bf16(x)
+    return [hi] if planes == 1 else [hi, _bf16(x - hi)]
+
+
+def _dot(a, b):
+    """A product of split operands (lists of planes): hi . hi, and with two
+    planes + hi . lo + lo . hi, summed in that order."""
+    out = torch.matmul(a[0], b[0])
+    if len(a) == 2:
+        out = out + torch.matmul(a[0], b[1]) + torch.matmul(a[1], b[0])
+    return out
+
+
+def _taps(beta):
+    """(B,) beta -> (B, 9, 16, 16) in f32: tile t (block offset o = t - 4)
+    holds g(16 o + c - r) at (r, c), g(d) = exp(-C_PSF d^2 / beta^2) for
     |d| <= 49, else 0 (the kernel's gpad)."""
     o = torch.arange(-BAND_TILES, BAND_TILES + 1)[:, None, None]
     d = (BLK * o + torch.arange(BLK)[None, None, :] - torch.arange(BLK)[None, :, None]).float()
     b = beta.reshape(-1, 1, 1, 1)
     g = torch.exp(-C_PSF * d ** 2 / (b * b))
-    return _bf16(torch.where(d.abs() <= 49, g, torch.zeros(())))
+    return torch.where(d.abs() <= 49, g, torch.zeros(()))
 
 
 def _a_from_tiles(tiles):
@@ -85,23 +110,29 @@ def _at_from_tiles(tiles):
 
 
 def _u(m):
-    """(B,) m -> U (B, 4, 100) rounded to bf16."""
+    """(B,) m -> U (B, 4, 100) in f32."""
     x = torch.arange(HR_SIZE, dtype=torch.float32)
     c = torch.arange(TAXELS, dtype=torch.float32)[:, None] * TAXEL_PITCH + TAXEL_CENTER_0
-    return _bf16(torch.exp(-C_MASK * (x - c) ** 2 / m.reshape(-1, 1, 1)))
+    return torch.exp(-C_MASK * (x - c) ** 2 / m.reshape(-1, 1, 1))
 
 
-def kernel_model(depth, abm):
-    """The kernel's arithmetic: depth (B,100,100), abm (B,3) ->
-    (HR, LR, T (B,112,112) f32 of bf16 values)."""
+def _pad(x, rows, cols):
+    """x zero-padded at the bottom and right to (rows, cols)."""
+    out = torch.zeros(*x.shape[:-2], rows, cols)
+    out[..., :x.shape[-2], :x.shape[-1]] = x
+    return out
+
+
+def kernel_model(depth, abm, planes=1):
+    """The kernel's arithmetic with ``planes`` bf16 planes per operand:
+    depth (B,100,100), abm (B,3) -> (HR, LR, T's planes (B, planes, 112,
+    112), f32 of bf16 values)."""
     depth = depth.float()
     alpha, beta, m = abm[:, 0].reshape(-1, 1, 1), abm[:, 1], abm[:, 2]
-    b = depth.shape[0]
-    tiles = _tiles(beta)
-    d = torch.zeros(b, MP, MP)
-    d[:, :HR_SIZE, :HR_SIZE] = _bf16(depth)
-    t = _bf16(torch.matmul(_a_from_tiles(tiles), d))
-    hr0 = (alpha * torch.matmul(t, _at_from_tiles(tiles)))[:, :HR_SIZE, :HR_SIZE]
+    tiles = _split(_taps(beta), planes)  # each plane's tiles: taps in A's padding
+    d = [_pad(p, MP, MP) for p in _split(depth, planes)]  # zero padding in every plane
+    t = _split(_dot([_a_from_tiles(p) for p in tiles], d), planes)
+    hr0 = (alpha * _dot(t, [_at_from_tiles(p) for p in tiles]))[:, :HR_SIZE, :HR_SIZE]
     mx = depth.amax(dim=(-2, -1), keepdim=True)
     contact = depth > mx - DISTURBANCE
     zero = torch.zeros(())
@@ -110,19 +141,17 @@ def kernel_model(depth, abm):
     count = contact.sum(dim=(-2, -1), keepdim=True).float()
     hsum = non_contact.sum(dim=(-2, -1), keepdim=True) + count * second
     hr = torch.where(contact, second, hr0)
-    u = _u(m)
-    up = torch.zeros(b, TAXELS, MP)
-    up[:, :, :HR_SIZE] = u
-    hp = torch.zeros(b, MP, MP)
-    hp[:, :HR_SIZE, :HR_SIZE] = _bf16(hr)
-    v = torch.zeros(b, TAXELS, MP)
+    u = _split(_u(m), planes)
+    up = [_pad(p, TAXELS, MP) for p in u]
+    hp = [_pad(p, MP, MP) for p in _split(hr, planes)]
+    v = torch.zeros(depth.shape[0], TAXELS, MP)
     for w in range(MT):  # the stripes' partials, in stripe order
         rows = slice(BLK * w, BLK * (w + 1))
-        v = v + torch.matmul(up[:, :, rows], hp[:, rows, :])
+        v = v + _dot([p[:, :, rows] for p in up], [p[:, rows, :] for p in hp])
     mn = torch.exp(-100.0 / m).reshape(-1, 1, 1)
-    t2 = torch.matmul(_bf16(v[:, :, :HR_SIZE]), u.transpose(-2, -1))
+    t2 = _dot(_split(v[:, :, :HR_SIZE], planes), [p.transpose(-2, -1) for p in u])
     lr = (t2 - mn * hsum) / (1.0 - mn) * DEGRADE_SCALE
-    return hr, lr, t
+    return hr, lr, torch.stack(t, 1)
 
 
 def _rects(rng, b):
@@ -177,55 +206,65 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("name", ["rects", "border", "beta_small", "beta_large"])
-def test_model_matches_plain(name):
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_model_matches_plain(precision, name):
     depth, abm = _case(name)
-    hr, lr, _ = kernel_model(depth, abm)
-    hr_p, lr_p = physics_plain(depth, abm, "default")
+    hr, lr, _ = kernel_model(depth, abm, PLANES[precision])
+    hr_p, lr_p = physics_plain(depth, abm, precision)
     assert torch.isfinite(hr).all() and torch.isfinite(lr).all()
     assert _rel(hr, hr_p) < REL and _rel(lr, lr_p) < REL, (_rel(hr, hr_p), _rel(lr, lr_p))
 
 
-def test_all_contact_map_has_second_max_zero():
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_all_contact_map_has_second_max_zero(precision):
     """Every pixel in contact: the second max is its floor 0, so HR and LR
     are zero, in the model as in the plain version."""
     depth, abm = _case("all_contact")
-    hr, lr, _ = kernel_model(depth, abm)
-    hr_p, lr_p = physics_plain(depth, abm, "default")
+    hr, lr, _ = kernel_model(depth, abm, PLANES[precision])
+    hr_p, lr_p = physics_plain(depth, abm, precision)
     assert torch.equal(hr, torch.zeros_like(hr)) and torch.equal(hr_p, torch.zeros_like(hr_p))
     assert float(lr.abs().max()) == 0.0 and float(lr_p.abs().max()) == 0.0
 
 
-def test_all_zero_map_gives_exact_zeros():
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_all_zero_map_gives_exact_zeros(precision):
     depth = torch.zeros(2, HR_SIZE, HR_SIZE)
     abm = torch.from_numpy(_abm(np.random.default_rng(7), 2))
-    hr, lr, t = kernel_model(depth, abm)
+    hr, lr, t = kernel_model(depth, abm, PLANES[precision])
+    assert t.shape == (2, PLANES[precision], MP, MP)
     assert torch.equal(t, torch.zeros_like(t))
     assert torch.equal(hr, torch.zeros_like(hr)) and torch.equal(lr, torch.zeros_like(lr))
 
 
-def test_padding_holds_taps_and_the_map_stays_exact():
-    """A's padded rows and columns hold taps, so T's padded rows are not
-    zero; T's padded columns are (D's are), which keeps the contractions
-    over k >= 100 empty."""
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_padding_holds_taps_and_the_map_stays_exact(precision):
+    """A's padded rows and columns hold taps in every plane, so T's padded
+    rows are not zero; T's padded columns are, in every plane (D's are),
+    which keeps the contractions over k >= 100 empty."""
     depth, abm = _case("rects")
-    a = _a_from_tiles(_tiles(abm[:, 1]))
-    assert float(a[:, HR_SIZE:, :].abs().max()) > 0 and float(a[:, :, HR_SIZE:].abs().max()) > 0
-    _, _, t = kernel_model(depth, abm)
-    assert float(t[:, HR_SIZE:, :].abs().max()) > 0
-    assert torch.equal(t[:, :, HR_SIZE:], torch.zeros_like(t[:, :, HR_SIZE:]))
-    # the tiled A equals the band matrix on the map
+    for tiles in _split(_taps(abm[:, 1]), PLANES[precision]):
+        a = _a_from_tiles(tiles)
+        assert float(a[:, HR_SIZE:, :].abs().max()) > 0 and float(a[:, :, HR_SIZE:].abs().max()) > 0
+    _, _, t = kernel_model(depth, abm, PLANES[precision])
+    assert float(t[:, :, HR_SIZE:, :].abs().amax(dim=(0, 2, 3)).min()) > 0
+    assert torch.equal(t[..., HR_SIZE:], torch.zeros_like(t[..., HR_SIZE:]))
+    # the tiled A equals the band matrix on the map, plane by plane
     idx = torch.arange(HR_SIZE)
     d = (idx[None, :] - idx[:, None]).float()
     beta = abm[:, 1].reshape(-1, 1, 1)
-    band = _bf16(torch.where(d.abs() <= 49, torch.exp(-C_PSF * d ** 2 / (beta * beta)), torch.zeros(())))
-    assert torch.equal(a[:, :HR_SIZE, :HR_SIZE], band)
+    band = torch.where(d.abs() <= 49, torch.exp(-C_PSF * d ** 2 / (beta * beta)), torch.zeros(()))
+    for tiles, plane in zip(_split(_taps(abm[:, 1]), PLANES[precision]), _split(band, PLANES[precision])):
+        assert torch.equal(_a_from_tiles(tiles)[:, :HR_SIZE, :HR_SIZE], plane)
 
 
 @pytest.mark.parametrize("beta, edge_nonzero", [(0.05, False), (50.0, True)])
-def test_band_edge_tiles(beta, edge_nonzero):
-    """At offset +-4 a tile holds only g(+-49) (and zeros beyond the band):
-    non-zero for a wide PSF, vanishing for a narrow one."""
-    tiles = _tiles(torch.tensor([beta]))
-    for t in (0, 2 * BAND_TILES):
-        assert bool((tiles[0, t] != 0).any()) == edge_nonzero
-        assert int((tiles[0, t] != 0).sum()) <= 1
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_band_edge_tiles(precision, beta, edge_nonzero):
+    """At offset +-4 a tile holds only g(+-49) (and zeros beyond the band),
+    in every plane: non-zero for a wide PSF, vanishing for a narrow one (at
+    beta = 50, g(49) = 0.98020 is no bf16 value, so its lo part is not zero
+    either)."""
+    for tiles in _split(_taps(torch.tensor([beta])), PLANES[precision]):
+        for t in (0, 2 * BAND_TILES):
+            assert bool((tiles[0, t] != 0).any()) == edge_nonzero
+            assert int((tiles[0, t] != 0).sum()) <= 1
