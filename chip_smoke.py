@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--keep-checkpoints DIR]
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -93,6 +93,23 @@ Phases (any failure exits non-zero and prints no result line):
                  fused) against their own f32 eval forward; a seeded
                  full-width STSR (perturbed BN stats) served for three
                  requests; fused f32 vs unfused f32; hot swap and refusal
+   server     -- the trained STSR behind the HTTP server
+                 (``tactilesr_torch/server.py``, the CLI's defaults, a
+                 loopback port): 32 concurrent clients x 8 requests of 1-64
+                 test rows, each response within the serving_trained rule of
+                 the f32 eval forward; JSON rows equal npz rows; /reload 200,
+                 then 409 for a 5-MSRB bundle with the old weights serving;
+                 429 with Retry-After past a small queue bound, 413 for a
+                 request larger than it; frames/s over HTTP, frames per
+                 dispatch and p50/p99 latency printed
+   serving_mtsr -- a seeded full-width MTSR (S=7, non-zero outputs) in each
+                 branch layout (per_seq, dense, grouped, mixed): f32 vs the
+                 unfused f32 eval forward, bf16 within 5% of the range;
+                 ``auto`` serves ``grouped`` at every bucket; each layout's
+                 bf16 forward at buckets 1-1024 (CUDA events: the table that
+                 chose ``grouped`` for ``auto``); ``export_program`` of a
+                 seeded STSR at bucket 256, bf16 and f32, reloaded and held
+                 against the forward
 8. times      -- forward and backward kernel and plain times at B=256 and
                  B=8192 (CUDA events), and each kernel's share of its bound;
                  the train step at B=256 split into the
@@ -111,18 +128,26 @@ Phases (any failure exits non-zero and prints no result line):
                  their plain versions and their bounds (bytes, or bf16
                  tensor-core operations)
 
+``--keep-checkpoints DIR`` also writes the trained STSR's and CNN's weights
+and the STSR test split's LR rows to DIR (off by default).
+
 Each phase prints its seconds.  The second-to-last line is the per-kernel JSON record, the line before it
 the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.
 """
 
+import concurrent.futures
+import io
 import json
 import os
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -132,7 +157,11 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from tactilesr_torch.config import tactileSeqs_config, tactileSR_config, tPSFNet_config  # noqa: E402
 from tactilesr_torch.data import generate  # noqa: E402
 from tactilesr_torch.data.datasets import SingleTapSeqsDataset  # noqa: E402
-from tactilesr_torch.models.inference import fold_inference_params, tactile_sr_infer  # noqa: E402
+from tactilesr_torch.models.inference import (  # noqa: E402
+    BRANCH_MODES,
+    fold_inference_params,
+    tactile_sr_infer,
+)
 from tactilesr_torch.models.tactile_sr import TactileSR, TactileSRCNN  # noqa: E402
 from tactilesr_torch.models.tpsf_net import TPSFNet  # noqa: E402
 from tactilesr_torch.ops import cuda as tcuda  # noqa: E402
@@ -140,10 +169,15 @@ from tactilesr_torch.ops.psf import f32_matmul, physics_plain, physics_vjp_plain
 from tactilesr_torch.runtime.checkpoint import load_checkpoint_file, save_checkpoint_file  # noqa: E402
 from tactilesr_torch.runtime.hooks import HookBase, ProfilerHook  # noqa: E402
 from tactilesr_torch.runtime.misc import apply_matmul_precision  # noqa: E402
-from tactilesr_torch.serving import SRPredictor  # noqa: E402
+from tactilesr_torch.serving import (  # noqa: E402
+    DEFAULT_BUCKETS,
+    SRPredictor,
+    export_program,
+)
 from tactilesr_torch.runtime.optim import adam_l2  # noqa: E402
 from tactilesr_torch.runtime.schedule import LRWarmupSchedule, StepLR  # noqa: E402
 from tactilesr_torch.runtime.trainer import SCAN_WARMUP_STEPS  # noqa: E402
+from tactilesr_torch.server import create_server  # noqa: E402
 from tactilesr_torch.tasks import sr_seqs_task, sr_task, tpsf_task  # noqa: E402
 
 HR_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -1339,6 +1373,11 @@ def _trained_model(ckpt, seqs_cnt, dtype=torch.float32):
     return model
 
 
+def _argmax_at(d):
+    """The (row, channel, y, x) of the largest |d|."""
+    return [int(i) for i in np.unravel_index(np.argmax(np.abs(d)), d.shape)]
+
+
 def phase_serving_trained(dev, stsr_ckpt, sr_dir, mtsr_ckpt, seqs_dir):
     """Both trained checkpoints through SRPredictor (bf16, fused, the default
     buckets) on their test splits, against their own f32 eval forward.  The
@@ -1371,7 +1410,8 @@ def phase_serving_trained(dev, stsr_ckpt, sr_dir, mtsr_ckpt, seqs_dir):
                 "output must be zero too")
         limit = max(BF16_REL * scale, 2 * own_err)
         out[name] = dict(frames=lr.shape[0], ref_max=scale, bf16_max_abs=err, bf16_rel_rms=rms,
-                         own_bf16_max_abs=own_err,
+                         own_bf16_max_abs=own_err, bf16_at=_argmax_at(sr - ref),
+                         own_bf16_at=_argmax_at(own - ref),
                          fused_f32_max_abs=float(np.abs(fused32 - ref).max()))
         log(f"[serving] trained {name} ({os.path.basename(os.path.dirname(os.path.dirname(ckpt)))}"
             f"/latest.pth), {lr.shape[0]} test frames: fused f32 vs unfused f32 max|d|="
@@ -1383,10 +1423,11 @@ def phase_serving_trained(dev, stsr_ckpt, sr_dir, mtsr_ckpt, seqs_dir):
     return out
 
 
-def _stsr(seed, pattern_layers=6):
-    """Seeded full-width STSR with BN running stats drawn from the seed."""
+def _stsr(seed, pattern_layers=6, seqs_cnt=1):
+    """Seeded full-width TactileSR (STSR, or MTSR for ``seqs_cnt`` > 1) with
+    BN running stats drawn from the seed."""
     g = torch.Generator().manual_seed(seed)
-    m = TactileSR(scale_factor=10, pattern_feature_extra_layer_cnt=pattern_layers,
+    m = TactileSR(scale_factor=10, seqs_cnt=seqs_cnt, pattern_feature_extra_layer_cnt=pattern_layers,
                   force_feature_extra_layer_cnt=1, generator=g)
     with torch.no_grad():
         for mod in m.modules():
@@ -1460,6 +1501,289 @@ def phase_serving(work, dev, test_lr, n_big=1500):
     check(np.array_equal(pred.predict(probe), swapped), "refused reload changed the weights")
     log("[serving] hot swap ok; refusal keeps the old weights serving")
     return pred
+
+
+SERVER_CLIENTS, SERVER_REQUESTS, SERVER_MAX_FRAMES = 32, 8, 64
+SERVER_F32_CLIENTS, SERVER_F32_REQUESTS = 16, 4
+
+
+def _http(url, body=None, ctype="application/x-npz"):
+    """(status, body, headers) of one request; an HTTP error status is
+    returned, not raised."""
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": ctype},
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read(), r.headers
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers
+
+
+def _npz(**arrays):
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def _sr_of(body):
+    with np.load(io.BytesIO(body)) as z:
+        return z["SR"]
+
+
+def _plans(rng, n_rows, clients, requests):
+    """Each client's requests: row indices of 1-SERVER_MAX_FRAMES rows."""
+    return [[rng.choice(n_rows, int(rng.integers(1, SERVER_MAX_FRAMES + 1)), replace=False)
+             for _ in range(requests)] for _ in range(clients)]
+
+
+def _clients(base, pool, plans):
+    """One thread per plan sends its requests to /predict in turn: every
+    (row indices, SR rows) answered, and the wall clock of the whole."""
+    def client(plan):
+        got = []
+        for idx in plan:
+            status, body, _ = _http(base + "/predict", _npz(LR=pool[idx]))
+            check(status == 200, f"/predict answered {status}: {body[:200]!r}")
+            got.append((idx, _sr_of(body)))
+        return got
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(plans)) as ex:
+        results = [r for f in [ex.submit(client, plan) for plan in plans] for r in f.result()]
+    return results, time.perf_counter() - t0
+
+
+def _serve(ckpt, **kw):
+    """``create_server(ckpt, port=0, **kw)`` serving from a thread: the
+    server, the thread and the base URL."""
+    srv = create_server(ckpt, port=0, **kw)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    return srv, thread, "http://%s:%d" % srv.server_address
+
+
+def _stop(srv, thread):
+    srv.shutdown()
+    srv.server_close()
+    srv.batcher.shutdown()
+    thread.join(10)
+    check(not thread.is_alive(), "the server thread did not stop")
+
+
+def phase_server(work, dev, stsr_ckpt, sr_dir):
+    """The trained full-width STSR (the sr phase's ``latest.pth``) behind
+    ``tactilesr_torch.server`` on a loopback port, at the predictor's and
+    the CLI's defaults (bf16, fused, buckets 1-1024, linger 2 ms, 8192
+    queued frames, 10 s deadline).  SERVER_CLIENTS threads send
+    SERVER_REQUESTS requests each of 1-SERVER_MAX_FRAMES test-split rows
+    (seeded); every response must lie within ``phase_serving_trained``'s
+    limit of the f32 eval forward on its rows; the JSON route must return
+    the npz route's rows; /reload to a second seeded bundle gives 200, a
+    5-MSRB one 409 with the old weights serving; a burst past a small
+    ``max_queue_frames`` gets 429 with Retry-After, an oversized request
+    413.  HTTP frames/s, frames per dispatch and latency percentiles are
+    health readings.  Then a shorter pass in f32 (SERVER_F32_CLIENTS
+    clients): every response within F32_RTOL of the f32 eval forward on its
+    rows, so that a fault in how the batcher orders or slices coalesced
+    rows fails at f32's tolerance, not only at bf16's."""
+    apply_matmul_precision({"matmul_precision": "highest"})
+    with np.load(os.path.join(sr_dir, "SRdataset_test.npz")) as z:
+        pool = np.ascontiguousarray(z["LR"][:, :3])
+    x = torch.from_numpy(pool)
+    ref = _unfused_f32(_trained_model(stsr_ckpt, 1), x, dev).cpu().numpy()
+    own = _unfused_f32(_trained_model(stsr_ckpt, 1, torch.bfloat16), x, dev).cpu().numpy()
+    scale, own_err = float(np.abs(ref).max()), float(np.abs(own - ref).max())
+    limit = max(BF16_REL * scale, 2 * own_err)
+    ckpt_b = save_checkpoint_file(os.path.join(work, "server_b.pth"), _stsr(seed=31).state_dict())
+    ckpt_5 = save_checkpoint_file(os.path.join(work, "server_5.pth"),
+                                  _stsr(seed=32, pattern_layers=5).state_dict())
+
+    srv, thread, base = _serve(stsr_ckpt, max_queue_frames=8192, deadline_ms=10_000.0)
+    out = {}
+    try:
+        status, body, _ = _http(base + "/healthz")
+        health = json.loads(body)
+        check(status == 200 and health["buckets"] == list(DEFAULT_BUCKETS) and health["fused"]
+              and health["branch_mode"] == "per_seq", f"/healthz: {status} {health}")
+        rng = np.random.default_rng(17)
+        stats0 = json.loads(_http(base + "/stats")[1])
+        results, wall = _clients(base, pool, _plans(rng, len(pool), SERVER_CLIENTS, SERVER_REQUESTS))
+        stats = json.loads(_http(base + "/stats")[1])
+        frames = sum(len(idx) for idx, _ in results)
+        worst = max(float(np.abs(sr - ref[idx]).max()) for idx, sr in results)
+        check(all(sr.shape == (len(idx),) + ref.shape[1:] and np.isfinite(sr).all() for idx, sr in results),
+              "a response of the wrong shape or not finite")
+        check(worst <= limit, f"served over HTTP: max|d|={worst:.4g} > {limit:.4g}")
+        batches = stats["batches"] - stats0["batches"]
+        out = dict(requests=len(results), frames=frames, seconds=wall, frames_per_s=frames / wall,
+                   dispatches=batches, frames_per_dispatch=frames / batches,
+                   avg_frames_per_dispatch=stats["avg_frames_per_dispatch"],
+                   latency_ms=stats["latency_ms"], max_coalesced_requests=stats["max_coalesced_requests"],
+                   max_abs=worst, limit=limit, ref_max=scale, own_bf16_max_abs=own_err)
+        log(f"[server] {SERVER_CLIENTS} clients x {SERVER_REQUESTS} requests, {frames} frames in "
+            f"{wall:.3f} s: {frames / wall:.1f} frames/s over HTTP (host clock), {batches} dispatches "
+            f"({frames / batches:.2f} frames each; /stats avg_frames_per_dispatch "
+            f"{stats['avg_frames_per_dispatch']}, up to {stats['max_coalesced_requests']} requests "
+            f"coalesced), latency p50/p95/p99 {stats['latency_ms']['p50']}/{stats['latency_ms']['p95']}/"
+            f"{stats['latency_ms']['p99']} ms; bf16 vs f32 eval max|d|={worst:.4g}, limit {limit:.4g} = "
+            f"max({BF16_REL} x ref max {scale:.4g}, 2 x the model's own bf16 stray {own_err:.4g}) ok")
+
+        rows = pool[:5]
+        _, body, _ = _http(base + "/predict", _npz(LR=rows))
+        status, jbody, _ = _http(base + "/predict", json.dumps({"lr": rows.tolist()}).encode(),
+                                 "application/json")
+        check(status == 200 and np.array_equal(np.asarray(json.loads(jbody)["sr"], np.float32), _sr_of(body)),
+              "the JSON route's rows differ from the npz route's")
+
+        def reload(path):
+            return _http(base + "/reload", json.dumps({"checkpoint": path}).encode(), "application/json")
+
+        status, _, _ = reload(ckpt_b)
+        swapped = _sr_of(_http(base + "/predict", _npz(LR=rows))[1])
+        check(status == 200 and not np.allclose(swapped, _sr_of(body)), f"/reload answered {status}")
+        status, rbody, _ = reload(ckpt_5)
+        check(status == 409 and json.loads(rbody)["serving"] == "previous weights",
+              f"a 5-MSRB bundle: /reload answered {status}")
+        check(np.array_equal(_sr_of(_http(base + "/predict", _npz(LR=rows))[1]), swapped),
+              "a refused reload changed the weights")
+        check(json.loads(_http(base + "/healthz")[1])["checkpoint"] == ckpt_b, "/healthz checkpoint")
+
+        b = srv.batcher
+        real = b.predictor.predict
+
+        def held(arr):  # keep the worker busy long enough for the burst to queue
+            time.sleep(0.25)
+            return real(arr)
+
+        b.max_queue_frames, b.predictor.predict = 64, held
+        try:
+            with concurrent.futures.ThreadPoolExecutor(8) as ex:
+                burst = list(ex.map(lambda _: _http(base + "/predict", _npz(LR=pool[:40])), range(8)))
+            codes = sorted(c for c, _, _ in burst)
+            retry = [h.get("Retry-After") for c, _, h in burst if c == 429]
+            check(429 in codes and all(r is not None and int(r) >= 1 for r in retry),
+                  f"a burst past max_queue_frames=64: {codes}, Retry-After {retry}")
+            status, _, headers = _http(base + "/predict", _npz(LR=pool[:65]))
+            check(status == 413 and headers.get("Retry-After") is None, f"an oversized request: {status}")
+        finally:
+            b.max_queue_frames, b.predictor.predict = 8192, real
+        out.update(burst_codes=codes)
+        log(f"[server] JSON rows == npz rows; /reload 200 then 409 (old weights serve); burst of 8 x 40 "
+            f"frames at max_queue_frames=64: {codes} (Retry-After {retry}); 65 frames: 413")
+    finally:
+        _stop(srv, thread)
+
+    srv, thread, base = _serve(stsr_ckpt, compute_dtype="float32", deadline_ms=10_000.0)
+    try:
+        results, _ = _clients(base, pool, _plans(np.random.default_rng(18), len(pool),
+                                                 SERVER_F32_CLIENTS, SERVER_F32_REQUESTS))
+        stats = json.loads(_http(base + "/stats")[1])
+    finally:
+        _stop(srv, thread)
+    for idx, sr in results:
+        np.testing.assert_allclose(sr, ref[idx], rtol=F32_RTOL, atol=F32_ATOL_REL * scale)
+    check(stats["max_coalesced_requests"] > 1, f"f32 pass: no request was coalesced: {stats}")
+    f32_err = max(float(np.abs(sr - ref[idx]).max()) for idx, sr in results)
+    out.update(f32=dict(requests=len(results), frames=sum(len(idx) for idx, _ in results),
+                        dispatches=stats["batches"], max_coalesced_requests=stats["max_coalesced_requests"],
+                        max_abs=f32_err))
+    log(f"[server] f32: {SERVER_F32_CLIENTS} clients x {SERVER_F32_REQUESTS} requests "
+        f"({out['f32']['frames']} frames, {stats['batches']} dispatches, up to "
+        f"{stats['max_coalesced_requests']} requests coalesced): every response within rtol {F32_RTOL} / "
+        f"atol {F32_ATOL_REL} x ref max of the f32 eval forward on its rows, max|d|={f32_err:.3e} ok")
+    return out
+
+
+MTSR_SEQS = 7
+MTSR_TIMED = {1: 50, 8: 50, 64: 20, 256: 8, 1024: 3}  # bucket: timed forwards a round
+
+
+def phase_serving_mtsr(work, dev):
+    """A seeded full-width MTSR (S=7, 6 MSRB, BN statistics from the seed)
+    served in every branch layout: f32 against the unfused f32 eval forward
+    at F32_RTOL, bf16 within BF16_REL of the range; ``auto`` serves
+    ``grouped`` at every bucket (its rows equal that pinned layout's); each
+    layout's bf16 device forward timed at every default bucket (CUDA
+    events, two rounds in turns), with the smallest bucket from which
+    ``grouped`` is no slower than ``per_seq`` (1 keeps ``auto`` as it is);
+    then ``export_program`` of a seeded STSR at bucket 256, bf16 and f32,
+    reloaded and held against the forward."""
+    apply_matmul_precision({"matmul_precision": "highest"})
+    model = _stsr(seed=41, seqs_cnt=MTSR_SEQS)
+    ckpt = save_checkpoint_file(os.path.join(work, "mtsr_seeded.pth"), model.state_dict())
+    g = torch.Generator().manual_seed(43)
+    lr = (torch.rand(DEFAULT_BUCKETS[-1] + 300, 3 * MTSR_SEQS, 4, 4, generator=g) * 4).numpy()
+    probe = lr[:300]  # 256 + 44 (padded to 64): both sides of any crossover
+    ref = _unfused_f32(model, torch.from_numpy(probe), dev).cpu().numpy()
+    scale = float(np.abs(ref).max())
+    check(scale > 0 and np.count_nonzero(ref) > ref.size // 10, "the seeded MTSR's output is zero")
+    bf16 = {}
+    errs = {}
+    for mode in BRANCH_MODES:
+        f32 = SRPredictor(ckpt, seqs_cnt=MTSR_SEQS, compute_dtype="float32", branch_mode=mode)
+        got = f32.predict(probe)
+        np.testing.assert_allclose(got, ref, rtol=F32_RTOL, atol=F32_ATOL_REL * scale)
+        bf16[mode] = SRPredictor(ckpt, seqs_cnt=MTSR_SEQS, branch_mode=mode)
+        bf16[mode].warmup()
+        served = bf16[mode].predict(probe)
+        err = float(np.abs(served - ref).max())
+        check(served.shape == ref.shape and err <= BF16_REL * scale,
+              f"MTSR {mode} bf16: max|d|={err:.4g} > {BF16_REL} x {scale:.4g}")
+        errs[mode] = dict(f32_max_abs=float(np.abs(got - ref).max()), bf16_max_abs=err)
+    log(f"[serving_mtsr] seeded MTSR (S={MTSR_SEQS}, 6 MSRB), {len(probe)} frames, ref max {scale:.4g}: "
+        f"every layout f32 vs unfused f32 within rtol {F32_RTOL} / atol {F32_ATOL_REL} x ref max, bf16 "
+        f"within {BF16_REL} x ref max: {errs}")
+
+    auto = SRPredictor(ckpt, seqs_cnt=MTSR_SEQS)
+    check(auto.branch_mode == "grouped", f"auto resolved to {auto.branch_mode}")
+    for b in DEFAULT_BUCKETS:
+        check(np.array_equal(auto.predict(lr[:b]), bf16["grouped"].predict(lr[:b])),
+              f"auto at bucket {b} != grouped's rows")
+    log("[serving_mtsr] auto served every bucket in grouped")
+
+    times = {mode: {b: [] for b in DEFAULT_BUCKETS} for mode in BRANCH_MODES}
+    for rnd in (BRANCH_MODES, BRANCH_MODES[::-1]):
+        for b in DEFAULT_BUCKETS:
+            x = torch.from_numpy(lr[:b]).to(dev)
+            for mode in rnd:
+                pred = bf16[mode]
+                w = pred._weights
+                times[mode][b].append(cuda_ms(lambda: pred._forward(w, x), MTSR_TIMED[b], warmup=2))
+    best = {mode: {b: min(t) for b, t in row.items()} for mode, row in times.items()}
+    measured = next((b for b in DEFAULT_BUCKETS
+                     if all(best["grouped"][c] <= best["per_seq"][c] for c in DEFAULT_BUCKETS if c >= b)),
+                    None)
+    for mode in BRANCH_MODES:
+        log(f"[serving_mtsr] {mode:8s} bf16 forward ms at buckets {list(DEFAULT_BUCKETS)}: "
+            + ", ".join(f"{best[mode][b]:.4f} ({'/'.join(f'{t:.4f}' for t in times[mode][b])})"
+                        for b in DEFAULT_BUCKETS))
+    log(f"[serving_mtsr] smallest bucket from which grouped is no slower than per_seq at every larger "
+        f"one: {measured} (auto serves grouped at every bucket); fastest layout per bucket: "
+        f"{ {b: min(BRANCH_MODES, key=lambda m: best[m][b]) for b in DEFAULT_BUCKETS} }")
+
+    stsr = _stsr(seed=44)
+    sckpt = save_checkpoint_file(os.path.join(work, "export_stsr.pth"), stsr.state_dict())
+    x = torch.from_numpy(lr[:256, :3]).to(dev)
+    exported = {}
+    for dtype in ("bfloat16", "float32"):
+        path = export_program(sckpt, os.path.join(work, f"stsr_{dtype}.pt2"), batch=256,
+                              compute_dtype=dtype)
+        program = torch.export.load(path)
+        got = program.module()(x)
+        shapes = [tuple(c.shape) for c in program.constants.values()]
+        check(shapes == [(got.shape[-1], 4)], f"the exported program's constants: {shapes} (the resize "
+              "matrix only)")
+        pred = SRPredictor(sckpt, compute_dtype=dtype, buckets=(256,))
+        want = pred._forward(pred._weights, x)
+        span = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, rtol=F32_RTOL, atol=F32_ATOL_REL * span)
+        check(err <= BF16_REL * span, f"exported {dtype}: max|d|={err:.4g} > {BF16_REL} x {span:.4g}")
+        exported[dtype] = dict(max_abs=err, ref_max=span, bytes=os.path.getsize(path))
+    log(f"[serving_mtsr] export_program of the seeded STSR at bucket 256, reloaded on the card: "
+        f"{exported}")
+    return dict(errors=errs, ms=best, ms_runs=times, measured_crossover=measured, exported=exported)
 
 
 HOST_LAUNCH = re.compile(r"^(cudaLaunchKernel|cudaLaunchKernelExC|cuLaunchKernel|cuLaunchKernelEx|"
@@ -1692,7 +2016,29 @@ class PhaseClock:
         return result
 
 
-def main():
+def keep_checkpoints(dest, stsr_ckpt, cnn_ckpt, sr_dir):
+    """Write the trained STSR's and TactileSRCNN's weights (each
+    ``latest.pth``'s model state_dict, in a bundle of its own: the optimizer
+    state would not fit what a chip run brings back) and the LR rows of the
+    STSR test split to ``dest``."""
+    os.makedirs(dest, exist_ok=True)
+    for name, ckpt in (("stsr", stsr_ckpt), ("cnn", cnn_ckpt)):
+        bundle = load_checkpoint_file(ckpt)
+        save_checkpoint_file(os.path.join(dest, f"{name}_latest.pth"), bundle["model"],
+                             epoch=bundle["epoch"])
+    with np.load(os.path.join(sr_dir, "SRdataset_test.npz")) as z:
+        np.savez(os.path.join(dest, "sr_test_lr.npz"), LR=z["LR"])
+    log(f"[keep] trained STSR and CNN weights and the STSR test split written to {dest}: "
+        f"{sorted(os.listdir(dest))}")
+
+
+def main(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU")
+    p.add_argument("--keep-checkpoints", metavar="DIR", default=None,
+                   help="also write the trained STSR's and CNN's weights and the STSR test split to DIR")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
               file=sys.stderr)
@@ -1721,6 +2067,9 @@ def main():
         stsr_capt, sr_capt_info = phase("sr_captured", phase_sr_captured, work, dev, sr_dir)
         remat = phase("remat", phase_remat, work, dev, sr_dir)
         cnn, cnn_info = phase("cnn", phase_cnn, work, dev, sr_dir)
+        if args.keep_checkpoints:
+            keep_checkpoints(args.keep_checkpoints, stsr_ckpt,
+                             os.path.join(work, "cnn", "checkpoints", "latest.pth"), sr_dir)
         n_trace_kernels = phase("profiler", phase_profiler, work, dev, sr_dir)
         torch.set_float32_matmul_precision("highest")
         seqs_launches, seqs_dir = phase("generation_seqs", phase_generation_seqs, work, dev, raw, ckpt)
@@ -1731,6 +2080,8 @@ def main():
         served = phase("serving_trained", phase_serving_trained, dev, stsr_ckpt, sr_dir, mtsr_ckpt,
                        seqs_dir)
         pred = phase("serving", phase_serving, work, dev, test_lr)
+        server = phase("server", phase_server, work, dev, stsr_ckpt, sr_dir)
+        mtsr_served = phase("serving_mtsr", phase_serving_mtsr, work, dev)
         times, bwd_times = phase("times", phase_times, dev, pred)
         prec_times = phase("times_precision", phase_times_precision, dev)
         train_t = phase("train_times", phase_train_times, trainer)
@@ -1752,6 +2103,8 @@ def main():
         f"ms (eager {capt_t['TactileSRCNN']['eager']['step_ms']:.4f}); captured vs eager losses: STSR f32 "
         f"{sr_capt_info['loss_rel']:.3e}, stage 1 {tpsf_capt_info['loss_rel']:.3e}; remat {remat}; CNN "
         f"{cnn_info}; {n_trace_kernels} kernels in the profiler trace")
+    log(f"[times] serving: server {json.dumps(server)}; MTSR branch layouts "
+        f"{json.dumps({k: mtsr_served[k] for k in ('ms', 'measured_crossover')})}")
     smi = nvidia_smi_line()
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s: {phase.seconds}")
     by_path = {"training": train_launches, "training_captured": capt_launches,

@@ -13,10 +13,24 @@ Exact rewrites applied once at load time (host-side, f32), as in
    with the kernel split along input channels (bias on one half); applied
    to MSRB's confusion 1x1, the head's first conv and the branch fuse.
 
-Only the ``per_seq`` branch layout is ported (one branch stack per
-sequence frame, which is the whole story for STSR).  Kernels are stored in
-the compute dtype and biases in f32, cast to the activation dtype at the
-add.  Convolutions are ``F.conv2d`` in NCHW.
+4. **Branch batching (MTSR)**: the S per-sequence input branches are
+   channel-independent (branch ``s`` reads input channels ``3s..3s+3`` and
+   writes features ``64s..64s+64``), so their concat is exactly one
+   convolution with a block-diagonal kernel, or one grouped convolution
+   (``groups=S``) with no extra taps.  ``branch_mode`` picks the layout:
+   ``per_seq`` (S branch stacks and a split fuse conv, the whole story for
+   STSR), ``dense`` (one 3S->64S and one 64S->64S block-diagonal conv, every
+   off-diagonal tap zero), ``grouped`` (the same two convs with
+   ``groups=S``, kernels stacked on the output axis) or ``mixed`` (dense
+   first conv, grouped second: its zero taps cost 2*9*(21-3)*448*1600 =
+   0.23 GFLOP per frame at S=7, scale 10).  In every batched mode the input
+   is upsampled once for all 3S channels (the upsample is per channel) and
+   the branch fuse is the original single 64S->64 conv.  On the H100
+   ``grouped`` is no slower than ``per_seq`` at every serving bucket
+   (PERF.md section 6, PR 11), so ``auto`` picks it for S>1 at every batch.
+
+Kernels are stored in the compute dtype and biases in f32, cast to the
+activation dtype at the add.  Convolutions are ``F.conv2d`` in NCHW.
 
 :func:`fold_inference_params` takes the port's ``TactileSR`` state_dict
 (the reference layout); :func:`tactile_sr_infer` is the forward.
@@ -32,10 +46,23 @@ import torch.nn.functional as F
 
 from ..ops.resize import resize_bilinear_nchw, upsample_bilinear
 
-__all__ = ["fold_inference_params", "fold_inference_params_cnn", "tactile_sr_infer",
-           "tactile_sr_cnn_infer"]
+__all__ = ["BRANCH_MODES", "fold_inference_params", "fold_inference_params_cnn",
+           "resolve_branch_mode", "tactile_sr_infer", "tactile_sr_cnn_infer"]
 
 _EPS = 1e-5  # torch BatchNorm2d default
+
+BRANCH_MODES = ("per_seq", "dense", "grouped", "mixed")
+
+
+def resolve_branch_mode(branch_mode: str, seqs_cnt: int) -> str:
+    """The MTSR branch layout (module docstring, rewrite 4): ``auto`` is
+    ``grouped`` for S>1 (no extra taps) and ``per_seq`` for S=1, where there
+    is nothing to batch."""
+    if branch_mode == "auto":
+        return "grouped" if seqs_cnt > 1 else "per_seq"
+    if branch_mode not in BRANCH_MODES:
+        raise ValueError(f"branch_mode must be 'auto' or one of {BRANCH_MODES}, got {branch_mode!r}")
+    return branch_mode
 
 
 class _Reader:
@@ -105,25 +132,50 @@ def fold_inference_params(
     force_layers: int = 1,
     dtype: torch.dtype = torch.bfloat16,
     device="cpu",
+    branch_mode: str = "per_seq",
 ) -> dict:
     """Rewrite a TactileSR state_dict into the fused serving layout.
 
     Returns a flat dict of tensors on ``device``: kernels (OIHW) in
     ``dtype``, biases in f32 (cast to the activation dtype at the add).
-    Raises ``KeyError`` on a missing parameter and ``ValueError`` when the
-    checkpoint holds modules the requested architecture would not read.
+    ``branch_mode`` picks the branch layout (module docstring, rewrite 4);
+    :func:`tactile_sr_infer` must be given the same one.  Raises
+    ``KeyError`` on a missing parameter and ``ValueError`` when the
+    checkpoint holds modules the requested architecture would not read or
+    the mode is unknown.
     """
+    branch_mode = resolve_branch_mode(branch_mode, seqs_cnt)
     rd = _Reader(state_dict)
     out: dict = {}
-    for s in range(seqs_cnt):
-        base = f"inputLayer_pattern_list.{s}"
-        for idx, (conv_i, bn_i) in enumerate([(1, 2), (4, 5)]):
-            k, b = _fold_bn(rd, f"{base}.{conv_i}", f"{base}.{bn_i}")
-            out[f"inputLayer_pattern_{s}_conv{idx}/k"] = k
-            out[f"inputLayer_pattern_{s}_conv{idx}/b"] = b
+    folds = [[_fold_bn(rd, f"inputLayer_pattern_list.{s}.{conv_i}", f"inputLayer_pattern_list.{s}.{bn_i}")
+              for conv_i, bn_i in ((1, 2), (4, 5))] for s in range(seqs_cnt)]
     ick, icb = _fold_bn(rd, "inputContact_layer.0", "inputContact_layer.1")
-    for s in range(seqs_cnt):  # the fuse conv reads cat(branch_0..): split it
-        out[f"inputContact/k{s}"] = ick[:, s * 64:(s + 1) * 64]
+    if branch_mode == "per_seq":
+        for s, convs in enumerate(folds):
+            for idx, (k, b) in enumerate(convs):
+                out[f"inputLayer_pattern_{s}_conv{idx}/k"] = k
+                out[f"inputLayer_pattern_{s}_conv{idx}/b"] = b
+        for s in range(seqs_cnt):  # the fuse conv reads cat(branch_0..): split it
+            out[f"inputContact/k{s}"] = ick[:, s * 64:(s + 1) * 64]
+    else:
+        # grouped kernels stack on the output axis (groups=S); dense ones
+        # are block-diagonal: branch s maps inputs [cin*s, cin*s+cin) to
+        # features [64s, 64s+64), every other tap zero
+        for idx, dense in ((0, branch_mode != "grouped"), (1, branch_mode == "dense")):
+            ks = [convs[idx][0] for convs in folds]
+            if len({k.shape for k in ks}) > 1:
+                raise ValueError(f"the {seqs_cnt} branches' conv{idx} kernels differ in shape "
+                                 f"({[tuple(k.shape) for k in ks]}): no {branch_mode} layout")
+            if dense:
+                co, ci = ks[0].shape[:2]
+                k = torch.zeros(co * seqs_cnt, ci * seqs_cnt, 3, 3)
+                for s, ks_ in enumerate(ks):
+                    k[s * co:(s + 1) * co, s * ci:(s + 1) * ci] = ks_
+            else:
+                k = torch.cat(ks)
+            out[f"branches/k{idx}"] = k
+            out[f"branches/b{idx}"] = torch.cat([convs[idx][1] for convs in folds])
+        out["inputContact/k"] = ick  # reads the concat as it is: not split
     out["inputContact/b"] = icb
 
     for i in range(pattern_layers):
@@ -182,8 +234,8 @@ def _placed(out: dict, dtype: torch.dtype, device) -> dict:
     }
 
 
-def _conv(x, kernel, bias=None, *, pad: int):
-    return F.conv2d(x, kernel, None if bias is None else bias.to(x.dtype), padding=pad)
+def _conv(x, kernel, bias=None, *, pad: int, groups: int = 1):
+    return F.conv2d(x, kernel, None if bias is None else bias.to(x.dtype), padding=pad, groups=groups)
 
 
 def _msrb_infer(folded: dict, pre: str, x):
@@ -208,25 +260,36 @@ def tactile_sr_infer(
     axis_cnt: int = 3,
     pattern_layers: int = 6,
     force_layers: int = 1,
+    branch_mode: str = "per_seq",
 ) -> torch.Tensor:
     """Fused serving forward: (B, seqs*axis, 4, 4) f32 -> (B, 1, 4s, 4s) f32.
 
     The same function as ``TactileSR.eval()(x)``; ``folded`` comes from
-    :func:`fold_inference_params` and sets the compute dtype."""
+    :func:`fold_inference_params` with the same ``branch_mode`` and sets
+    the compute dtype."""
+    branch_mode = resolve_branch_mode(branch_mode, seqs_cnt)
     dt = folded["head1/k"].dtype
     relu = torch.relu
     x = x.float()
 
-    acc = None
-    for s in range(seqs_cnt):
-        xs = upsample_bilinear(x[:, s * axis_cnt:(s + 1) * axis_cnt], scale_factor).to(dt)
-        h = relu(_conv(xs, folded[f"inputLayer_pattern_{s}_conv0/k"],
-                       folded[f"inputLayer_pattern_{s}_conv0/b"], pad=1))
-        h = relu(_conv(h, folded[f"inputLayer_pattern_{s}_conv1/k"],
-                       folded[f"inputLayer_pattern_{s}_conv1/b"], pad=1))
-        c = _conv(h, folded[f"inputContact/k{s}"], pad=1)
-        acc = c if acc is None else acc + c
-    pattern = relu(acc + folded["inputContact/b"].to(acc.dtype)[:, None, None])
+    if branch_mode == "per_seq":
+        acc = None
+        for s in range(seqs_cnt):
+            xs = upsample_bilinear(x[:, s * axis_cnt:(s + 1) * axis_cnt], scale_factor).to(dt)
+            h = relu(_conv(xs, folded[f"inputLayer_pattern_{s}_conv0/k"],
+                           folded[f"inputLayer_pattern_{s}_conv0/b"], pad=1))
+            h = relu(_conv(h, folded[f"inputLayer_pattern_{s}_conv1/k"],
+                           folded[f"inputLayer_pattern_{s}_conv1/b"], pad=1))
+            c = _conv(h, folded[f"inputContact/k{s}"], pad=1)
+            acc = c if acc is None else acc + c
+        pattern = relu(acc + folded["inputContact/b"].to(acc.dtype)[:, None, None])
+    else:  # rewrite 4: all S branches as two convolutions
+        g0 = seqs_cnt if branch_mode == "grouped" else 1
+        g1 = 1 if branch_mode == "dense" else seqs_cnt
+        h = upsample_bilinear(x[:, :seqs_cnt * axis_cnt], scale_factor).to(dt)
+        h = relu(_conv(h, folded["branches/k0"], folded["branches/b0"], pad=1, groups=g0))
+        h = relu(_conv(h, folded["branches/k1"], folded["branches/b1"], pad=1, groups=g1))
+        pattern = relu(_conv(h, folded["inputContact/k"], folded["inputContact/b"], pad=1))
 
     for i in range(pattern_layers):
         pattern = _msrb_infer(folded, f"msrb_{i}", pattern)

@@ -9,9 +9,15 @@ chunks of the largest bucket, so the device only ever sees those shapes.
 Compute runs in bf16 by default; the output is f32.  ``model_arch`` picks
 the network, as the training config's key does: ``TactileSR`` (STSR/MTSR,
 the default) or ``TactileSRCNN`` (single-frame; ``pattern_layers`` is then
-its MSRB count).
+its MSRB count).  ``branch_mode`` picks the MTSR branch layout
+(``models/inference.py``, rewrite 4); ``auto`` serves ``grouped`` for S>1,
+which the H100 found no slower than ``per_seq`` at every default bucket
+(PERF.md section 6, PR 11), so one layout is folded per predictor.
+:func:`export_program` writes the forward served at one bucket as a
+``torch.export`` program with the weights in it.
 
     python -m tactilesr_torch.serving --checkpoint x.pth --input frames.npz --output sr.npz
+    python -m tactilesr_torch.serving --checkpoint x.pth --input test.npz --evaluate
 """
 
 from __future__ import annotations
@@ -23,8 +29,10 @@ import numpy as np
 import torch
 
 from .models.inference import (
+    BRANCH_MODES,
     fold_inference_params,
     fold_inference_params_cnn,
+    resolve_branch_mode,
     tactile_sr_cnn_infer,
     tactile_sr_infer,
 )
@@ -32,7 +40,7 @@ from .models.tactile_sr import TactileSR, TactileSRCNN
 from .runtime.checkpoint import load_checkpoint_file
 from .runtime.device import resolve_device
 
-__all__ = ["SRPredictor", "DEFAULT_BUCKETS", "MODEL_ARCHS"]
+__all__ = ["SRPredictor", "DEFAULT_BUCKETS", "MODEL_ARCHS", "export_program"]
 
 logger = logging.getLogger("tactilesr_torch")
 
@@ -40,10 +48,12 @@ DEFAULT_BUCKETS = (1, 8, 64, 256, 1024)
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 MODEL_ARCHS = ("TactileSR", "TactileSRCNN")
 
-
-def _spec(tensors: dict) -> dict:
-    """{name: (shape, dtype)}: the fingerprint a hot-swapped checkpoint must match."""
-    return {k: (tuple(v.shape), v.dtype) for k, v in tensors.items()}
+def _spec(weights) -> dict:
+    """{name: (shape, dtype)}: the fingerprint a hot-swapped checkpoint must
+    match."""
+    if isinstance(weights, torch.nn.Module):
+        weights = weights.state_dict()
+    return {k: (tuple(v.shape), v.dtype) for k, v in weights.items()}
 
 
 class SRPredictor:
@@ -62,6 +72,7 @@ class SRPredictor:
         fused: bool = True,
         device="cuda",
         model_arch: str = "TactileSR",
+        branch_mode: str = "auto",
     ):
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {compute_dtype!r}")
@@ -78,14 +89,15 @@ class SRPredictor:
         self._arch = dict(scale_factor=scale_factor, seqs_cnt=seqs_cnt, axis_cnt=axis_cnt)
         self._pattern_layers = pattern_layers
         self._force_layers = force_layers
+        self.branch_mode = resolve_branch_mode(branch_mode, seqs_cnt)
         self._weights = None
         self._load_weights(checkpoint_path)
-        logger.info("SRPredictor ready: %s (buckets %s, fused=%s, %s on %s)",
-                    checkpoint_path, self.buckets, fused, compute_dtype, self.device)
+        logger.info("SRPredictor ready: %s (buckets %s, fused=%s, branch_mode %s, %s on %s)",
+                    checkpoint_path, self.buckets, fused, self.branch_mode, compute_dtype, self.device)
 
     def _build(self, state_dict: dict):
-        """The serving state for one checkpoint: folded tensors (fused) or an
-        eval-mode model of ``model_arch`` (unfused), on the device."""
+        """The serving state for one checkpoint: folded tensors (fused) or
+        an eval-mode model of ``model_arch`` (unfused), on the device."""
         cnn = self.model_arch == "TactileSRCNN"
         if self.fused and cnn:
             return fold_inference_params_cnn(state_dict, msrb_cnt=self._pattern_layers,
@@ -94,7 +106,7 @@ class SRPredictor:
             return fold_inference_params(
                 state_dict, seqs_cnt=self._arch["seqs_cnt"],
                 pattern_layers=self._pattern_layers, force_layers=self._force_layers,
-                dtype=self.dtype, device=self.device,
+                dtype=self.dtype, device=self.device, branch_mode=self.branch_mode,
             )
         if cnn:
             model = TactileSRCNN(scale_factor=self._arch["scale_factor"], msrb_cnt=self._pattern_layers,
@@ -108,7 +120,7 @@ class SRPredictor:
             model.load_state_dict(state_dict, strict=True)
         except RuntimeError as e:  # missing, unexpected or mis-shaped keys
             raise KeyError(str(e)) from e
-        return model.to(self.device).eval()
+        return model.to(self.device).eval().requires_grad_(False)
 
     def _load_weights(self, checkpoint_path: str) -> None:
         """Load (or hot-swap) weights.  All work happens on locals and the
@@ -123,7 +135,7 @@ class SRPredictor:
                 f"(model_arch={self.model_arch}, seqs_cnt={self._arch['seqs_cnt']}, "
                 f"pattern_layers={self._pattern_layers}, force_layers={self._force_layers}): {e}"
             ) from e
-        spec = _spec(new if self.fused else new.state_dict())
+        spec = _spec(new)
         if self._weights is not None and spec != self._spec:
             raise ValueError(
                 f"checkpoint {checkpoint_path!r} does not match the serving architecture "
@@ -146,7 +158,7 @@ class SRPredictor:
         if self.fused:
             return tactile_sr_infer(
                 w, x, pattern_layers=self._pattern_layers, force_layers=self._force_layers,
-                **self._arch,
+                branch_mode=self.branch_mode, **self._arch,
             )
         return w(x)
 
@@ -188,6 +200,60 @@ class SRPredictor:
         return np.concatenate(outs)
 
 
+class _ServedForward(torch.nn.Module):
+    """The forward ``pred`` serves, as a module that holds the eval model or
+    the folded weights as parameters or buffers, so that a ``torch.export``
+    program of it owns them.  The resize matrix, read from the per-device
+    cache, is lifted into the program as a constant."""
+
+    def __init__(self, pred: "SRPredictor"):
+        super().__init__()
+        self._pred = pred
+        w = pred._weights
+        if isinstance(w, torch.nn.Module):
+            self.model, self._keys = w, None
+        else:
+            self._keys = list(w)
+            for i, k in enumerate(self._keys):
+                self.register_buffer(f"w{i}", w[k])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._keys is None:
+            return self._pred._forward(self.model, x)
+        return self._pred._forward({k: getattr(self, f"w{i}") for i, k in enumerate(self._keys)}, x)
+
+
+def export_program(
+    checkpoint_path: str,
+    out_path: str,
+    batch: int = 256,
+    scale_factor: int = 10,
+    seqs_cnt: int = 1,
+    pattern_layers: int = 6,
+    force_layers: int = 1,
+    compute_dtype: str = "bfloat16",
+    fused: bool = True,
+    model_arch: str = "TactileSR",
+    branch_mode: str = "auto",
+    device="cuda",
+) -> str:
+    """Save the forward ``SRPredictor`` would serve at bucket ``batch``
+    (fused, or ``fused=False`` for the eval model; ``model_arch`` and
+    ``branch_mode`` honoured) as a ``torch.export`` program with the weights
+    baked in: ``torch.export.load(out_path).module()(x)`` runs it on a
+    (batch, C, 4, 4) f32 ``x`` on ``device`` with nothing of this package."""
+    pred = SRPredictor(checkpoint_path, scale_factor=scale_factor, seqs_cnt=seqs_cnt,
+                       pattern_layers=pattern_layers, force_layers=force_layers,
+                       compute_dtype=compute_dtype, buckets=(batch,), fused=fused, device=device,
+                       model_arch=model_arch, branch_mode=branch_mode)
+    x = torch.zeros((batch, pred.in_channels, 4, 4), device=pred.device)
+    with torch.no_grad():  # the forward's own no_grad then records nothing
+        program = torch.export.export(_ServedForward(pred), (x,), strict=False)
+    torch.export.save(program, out_path)
+    logger.info("exported the bucket-%d forward (%s) -> %s", batch, pred.branch_mode, out_path)
+    return out_path
+
+
 def _cli(argv=None):
     import argparse
     import json
@@ -208,28 +274,46 @@ def _cli(argv=None):
                    help="same knob as the training config's model_arch")
     p.add_argument("--no-fused", action="store_true",
                    help="serve the layer-by-layer eval forward instead of the fused graph")
+    p.add_argument("--branch-mode", default="auto", choices=("auto",) + BRANCH_MODES,
+                   help="MTSR branch layout (models/inference.py rewrite 4); auto: grouped for S>1")
+    p.add_argument("--evaluate", action="store_true",
+                   help="if the input .npz has an 'HR' array, report PSNR/SSIM against it")
+    p.add_argument("--hr-scale-num", type=float, default=10.0)
+    p.add_argument("--max-value", type=float, default=250.0)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
     with np.load(args.input) as z:
         lr = z["LR"]
+        hr = z["HR"] if args.evaluate and "HR" in z else None
     pred = SRPredictor(
         args.checkpoint, scale_factor=args.scale_factor, seqs_cnt=args.seqs_cnt,
         pattern_layers=args.pattern_layers, force_layers=args.force_layers,
         compute_dtype=args.compute_dtype, fused=not args.no_fused, device=args.device,
-        model_arch=args.model_arch,
+        model_arch=args.model_arch, branch_mode=args.branch_mode,
     )
     pred.warmup()
     t0 = time.perf_counter()
     sr = pred.predict(lr)  # returns host arrays: the device work is done
     dt = time.perf_counter() - t0
-    print(json.dumps({
+    report = {
         "frames": int(lr.shape[0]),
         "seconds": dt,
         "frames_per_sec": lr.shape[0] / dt if dt > 0 else None,
         "output_shape": list(sr.shape),
         "device": str(pred.device),
-    }))
+        "branch_mode": pred.branch_mode,
+    }
+    if hr is not None:
+        from .metrics import batched_psnr, batched_ssim
+        from .tasks.sr_task import prepare_sr_labels
+
+        label = torch.from_numpy(prepare_sr_labels(
+            hr, {"scale_factor": args.scale_factor, "HR_scale_num": args.hr_scale_num}))[:, 0]
+        out = torch.from_numpy(sr)[:, 0]
+        report["psnr_db"] = float(batched_psnr(out, label, args.max_value).mean())
+        report["ssim"] = float(batched_ssim(out, label).mean())
+    print(json.dumps(report))
     if args.output:
         np.savez(args.output, SR=sr)
         logger.info("wrote %s", args.output)

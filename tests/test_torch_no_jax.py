@@ -39,7 +39,8 @@ def _run(code):
 
 def test_port_imports_nothing_of_jax():
     mods = _modules()
-    for m in ("ops.cuda", "serving", "tasks.tpsf_task", "tasks.sr_task", "tasks.sr_seqs_task"):
+    for m in ("ops.cuda", "serving", "server", "tasks.tpsf_task", "tasks.sr_task",
+              "tasks.sr_seqs_task"):
         assert f"tactilesr_torch.{m}" in mods, m
     code = (
         "import importlib\n"

@@ -17,8 +17,17 @@ tell a fault of the port from the model's own behaviour:
 Run as a script, it prints the measured numbers as JSON:
 
     JAX_PLATFORMS=cpu python tests/test_torch_sr_c2.py
+
+Given the weights of a trained full-width STSR (a port ``.pth``, such as
+``chip_smoke.py --keep-checkpoints DIR`` writes) and LR rows, it measures
+both packages' bf16 strays on those weights instead (``strays``;
+about a minute a 32 rows):
+
+    JAX_PLATFORMS=cpu python tests/test_torch_sr_c2.py --trained DIR/stsr_latest.pth \
+        --rows DIR/sr_test_lr.npz
 """
 
+import argparse
 import json
 import os
 import sys
@@ -33,6 +42,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from conftest import make_toy_trainer, toy_sr_config  # noqa: E402
+from tactilesr_tpu.compat.torch_convert import convert_tactile_sr  # noqa: E402
 from tactilesr_tpu.models.tactile_sr import TactileSR as JaxTactileSR  # noqa: E402
 from tactilesr_tpu.runtime import LRWarmupSchedule as JaxLRWarmupSchedule  # noqa: E402
 from tactilesr_tpu.runtime import StepLR as JaxStepLR  # noqa: E402
@@ -92,9 +102,11 @@ def _outputs_port(state_dict, x, seqs_cnt, dtype):
 
 def _stray(bf16, f32):
     scale = float(np.abs(f32).max())
-    return {"max_abs": float(np.abs(bf16 - f32).max()), "ref_max": scale,
-            "share_of_range": float(np.abs(bf16 - f32).max()) / scale,
-            "rel_rms": float(np.sqrt(np.mean((bf16 - f32) ** 2) / np.mean(f32 ** 2)))}
+    d = np.abs(bf16 - f32)
+    return {"max_abs": float(d.max()), "ref_max": scale,
+            "share_of_range": float(d.max()) / scale,
+            "rel_rms": float(np.sqrt(np.mean((bf16 - f32) ** 2) / np.mean(f32 ** 2))),
+            "at": [int(i) for i in np.unravel_index(np.argmax(d), d.shape)]}
 
 
 def measure_bf16_stray(work):
@@ -106,6 +118,55 @@ def measure_bf16_stray(work):
         "jax": _stray(_outputs_jax(v, x, 1, jnp.bfloat16), _outputs_jax(v, x, 1, jnp.float32)),
         "port": _stray(_outputs_port(sd, x, 1, torch.bfloat16), _outputs_port(sd, x, 1, torch.float32)),
     }
+
+
+def strays(state_dict, x, scale_factor=10, pattern_layers=6, force_layers=1, chunk=32):
+    """A port STSR state_dict (converted for JAX by
+    ``tactilesr_tpu/compat/torch_convert.py::convert_tactile_sr``) through
+    both packages' f32 and bf16 eval forwards on the LR rows ``x``: each
+    package's bf16 stray from its own f32, each bf16 from the other
+    package's f32, and the two f32 forwards from each other."""
+    arch = dict(scale_factor=scale_factor, pattern_feature_extra_layer_cnt=pattern_layers,
+                force_feature_extra_layer_cnt=force_layers)
+    v = convert_tactile_sr(state_dict, pattern_layers=pattern_layers, force_layers=force_layers)
+
+    def run(apply):
+        return np.concatenate([apply(x[i:i + chunk]) for i in range(0, len(x), chunk)])
+
+    out = {}
+    for name, dtype in (("f32", jnp.float32), ("bf16", jnp.bfloat16)):
+        m = JaxTactileSR(dtype=dtype, **arch)
+        out["jax", name] = run(lambda xs: np.asarray(m.apply(v, jnp.asarray(xs), train=False)))
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        m = TactileSR(dtype=dtype, **arch)
+        m.load_state_dict(state_dict, strict=True)
+        with torch.no_grad():
+            out["port", name] = run(lambda xs: m.eval()(torch.from_numpy(xs)).numpy())
+    return {
+        "rows": len(x),
+        "jax": _stray(out["jax", "bf16"], out["jax", "f32"]),
+        "port": _stray(out["port", "bf16"], out["port", "f32"]),
+        "port_bf16_vs_jax_f32": _stray(out["port", "bf16"], out["jax", "f32"]),
+        "jax_bf16_vs_port_f32": _stray(out["jax", "bf16"], out["port", "f32"]),
+        "f32_port_vs_jax": _stray(out["port", "f32"], out["jax", "f32"]),
+    }
+
+
+def test_strays_of_a_trained_stsr(tmp_path):
+    """``strays`` (the full-width measurement's code) at toy width on the
+    trained toy STSR, in chunks: its two own-package strays are those of
+    one whole forward (``measure_bf16_stray``'s), and the two f32 forwards
+    agree."""
+    v, _, x = _trained_stsr(str(tmp_path))
+    sd = tactile_sr_state_dict(v)
+    got = strays(sd, x, scale_factor=4, pattern_layers=1, chunk=16)
+    want = {
+        "jax": _stray(_outputs_jax(v, x, 1, jnp.bfloat16), _outputs_jax(v, x, 1, jnp.float32)),
+        "port": _stray(_outputs_port(sd, x, 1, torch.bfloat16), _outputs_port(sd, x, 1, torch.float32)),
+    }
+    for pkg in ("jax", "port"):
+        np.testing.assert_allclose(got[pkg]["max_abs"], want[pkg]["max_abs"], rtol=1e-6)
+    assert got["f32_port_vs_jax"]["share_of_range"] < 1e-5, got
 
 
 def _zeros(out):
@@ -186,6 +247,17 @@ def test_bf16_stray_matches_jax(tmp_path):
 
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
+    p = argparse.ArgumentParser()
+    p.add_argument("--trained", help="a port .pth of a trained full-width STSR")
+    p.add_argument("--rows", help=".npz whose 'LR' rows feed it")
+    p.add_argument("--n", type=int, default=64, help="how many of those rows")
+    args = p.parse_args()
+    if args.trained:
+        with np.load(args.rows) as z:
+            lr = np.ascontiguousarray(z["LR"][:args.n, :3], np.float32)
+        sd = torch.load(args.trained, map_location="cpu", weights_only=True)["model"]
+        print(json.dumps(strays(sd, lr), indent=1))
+        sys.exit(0)
     torch.set_num_threads(1)
     with tempfile.TemporaryDirectory() as work:
         print(json.dumps({"bf16_stray": measure_bf16_stray(os.path.join(work, "a")),
