@@ -128,6 +128,23 @@ Phases (any failure exits non-zero and prints no result line):
                  their plain versions and their bounds (bytes, or bf16
                  tensor-core operations)
 
+9. device     -- the memory scan, the freest device and the bf16 matmul
+                 burn-in (``runtime/device.py``): TFLOP/s in (0, 105% of
+                 the 989 TFLOP/s dense peak]
+   bench      -- ``python -m tactilesr_torch.bench``'s default run, ``--seqs
+                 7``, ``--train`` and ``--tpsf --batch 8192`` at each
+                 precision, cut to ``BENCH_PLAN``'s rounds and calls: keys,
+                 ``mfu`` and the share of the bound in (0, 1.05), and under
+                 ``--tpsf`` exactly its precision's kernel launched (the
+                 launches of that path in the kernel record)
+   bench_server -- ``scripts/bench_server.py --clients 16``: every phase
+                 served, the overload phase's queue within its bound
+   interchange -- the trained STSR ``.pth`` -> JAX ``.ckpt`` -> ``.pth``
+                 (``compat/torch_convert.py``, ``compat/export_torch.py``),
+                 bit-equal, and the three files served to the same output
+   graft_entry -- ``graft_entry.entry()`` on the card: the flagship bf16
+                 forward against the same weights in f32 (``BF16_REL``)
+
 ``--keep-checkpoints DIR`` also writes the trained STSR's and CNN's weights
 and the STSR test split's LR rows to DIR (off by default).
 
@@ -141,7 +158,6 @@ import io
 import json
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import threading
@@ -154,6 +170,18 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from tactilesr_torch import bench, graft_entry  # noqa: E402
+from tactilesr_torch.bench import (  # noqa: E402
+    PEAK_BF16_FLOPS,
+    cnn_flops_per_frame,
+    device_profile,
+    fused_bound_ms,
+    nvidia_smi_line,
+    sr_flops_per_frame,
+    tpsf_bf16_bound_ms,
+    tpsf_bound_ms,
+    tpsf_bwd_bound_ms,
+)
 from tactilesr_torch.config import tactileSeqs_config, tactileSR_config, tPSFNet_config  # noqa: E402
 from tactilesr_torch.data import generate  # noqa: E402
 from tactilesr_torch.data.datasets import SingleTapSeqsDataset  # noqa: E402
@@ -166,7 +194,14 @@ from tactilesr_torch.models.tactile_sr import TactileSR, TactileSRCNN  # noqa: E
 from tactilesr_torch.models.tpsf_net import TPSFNet  # noqa: E402
 from tactilesr_torch.ops import cuda as tcuda  # noqa: E402
 from tactilesr_torch.ops.psf import f32_matmul, physics_plain, physics_vjp_plain  # noqa: E402
+from tactilesr_torch.compat.export_torch import export_checkpoint_file  # noqa: E402
+from tactilesr_torch.compat.torch_convert import convert_checkpoint_file  # noqa: E402
 from tactilesr_torch.runtime.checkpoint import load_checkpoint_file, save_checkpoint_file  # noqa: E402
+from tactilesr_torch.runtime.device import (  # noqa: E402
+    parse_device_memory,
+    select_device_with_most_free_memory,
+)
+from tactilesr_torch.runtime.device import test_device as burn_in  # noqa: E402
 from tactilesr_torch.runtime.hooks import HookBase, ProfilerHook  # noqa: E402
 from tactilesr_torch.runtime.misc import apply_matmul_precision  # noqa: E402
 from tactilesr_torch.serving import (  # noqa: E402
@@ -177,6 +212,7 @@ from tactilesr_torch.serving import (  # noqa: E402
 from tactilesr_torch.runtime.optim import adam_l2  # noqa: E402
 from tactilesr_torch.runtime.schedule import LRWarmupSchedule, StepLR  # noqa: E402
 from tactilesr_torch.runtime.trainer import SCAN_WARMUP_STEPS  # noqa: E402
+from tactilesr_torch.scripts import bench_server  # noqa: E402
 from tactilesr_torch.server import create_server  # noqa: E402
 from tactilesr_torch.tasks import sr_seqs_task, sr_task, tpsf_task  # noqa: E402
 
@@ -196,12 +232,6 @@ F32_RTOL, F32_ATOL_REL = 1e-4, 1e-4
 SR_EPOCHS = 2
 SR_PARITY_BATCH, SR_PARITY_STEPS = 8, 2
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
-PEAK_F32_FLOPS = 67e12  # f32 on the CUDA cores (no tensor cores)
-PEAK_BF16_FLOPS = 989e12  # bf16 on the tensor cores
-PEAK_HBM_BPS = 3.35e12
-
-
 def log(msg):
     print(msg, flush=True)
 
@@ -209,14 +239,6 @@ def log(msg):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
-
-
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0] if out else "unknown"
 
 
 def physics_inputs(b, dev, seed=0):
@@ -255,52 +277,6 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def tpsf_bound_ms(b):
-    """Least time for B samples: f32 FMA work over the f32 peak vs bytes
-    (depth and abm in, HR and LR out, once each) over HBM bandwidth."""
-    band = sum(min(99, i + 49) - max(0, i - 49) + 1 for i in range(100))  # 7,450 taps of A
-    flops = 2 * 2 * band * 100 + 2 * (4 * 100 * 100 + 4 * 4 * 100)  # A.D.A^T + U.HR.U^T
-    nbytes = 4 * (100 * 100 + 3 + 100 * 100 + 16)
-    t_ops = b * flops / PEAK_F32_FLOPS * 1e3
-    t_bytes = b * nbytes / PEAK_HBM_BPS * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
-def fused_bound_ms(b):
-    """Least time for the function the wrapper computes, forward and abm
-    gradient, at B samples.  Operations: the banded forward once (the
-    kernel's count), the three banded products of the abm backward with
-    P = A D, M = P A^T (dP = dM A, and dA = dM^T P + dP D^T over the band
-    only), and the degradation's backward (to HR, and to m through U H and
-    U H^T) at twice its forward; elementwise work is left out.  Over the
-    f32 peak, against depth and abm in, HR and LR out, the LR cotangent in
-    and the abm gradient out, once each, over HBM bandwidth."""
-    band = sum(min(99, i + 49) - max(0, i - 49) + 1 for i in range(100))  # 7,450 taps of A
-    degrade = 2 * (4 * 100 * 100 + 4 * 4 * 100)
-    flops = (2 * 2 * band * 100 + degrade) + 3 * 2 * band * 100 + 2 * degrade
-    nbytes = 4 * (100 * 100 + 3 + 100 * 100 + 16 + 16 + 3)
-    t_ops = b * flops / PEAK_F32_FLOPS * 1e3
-    t_bytes = b * nbytes / PEAK_HBM_BPS * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
-def tpsf_bwd_bound_ms(b):
-    """Least time for the backward kernel's function as training calls it
-    (LR cotangent, abm gradient) at B samples: the forward's two banded
-    products (recomputed from the inputs), the three banded products of the
-    abm backward (Q = G0 A and the two correlations with the band of
-    dL/dA) and the degradation's backward at twice its forward, over the
-    f32 peak, against depth, abm and the LR cotangent in and the abm
-    gradient out, once each, over HBM bandwidth."""
-    band = sum(min(99, i + 49) - max(0, i - 49) + 1 for i in range(100))  # 7,450 taps of A
-    degrade = 2 * (4 * 100 * 100 + 4 * 4 * 100)
-    flops = 5 * 2 * band * 100 + 2 * degrade
-    nbytes = 4 * (100 * 100 + 3 + 16 + 3)
-    t_ops = b * flops / PEAK_F32_FLOPS * 1e3
-    t_bytes = b * nbytes / PEAK_HBM_BPS * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def vjp_plain_f32(depth, abm, g_hr, g_lr, need_depth):
@@ -577,18 +553,6 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-def tpsf_bf16_bound_ms(b, passes):
-    """Least time for B samples of a bf16 kernel: the banded products and
-    the degradation (``tpsf_bound_ms``'s count) ``passes`` times over the
-    bf16 dense peak, against the same bytes as the f32 kernel's."""
-    band = sum(min(99, i + 49) - max(0, i - 49) + 1 for i in range(100))  # 7,450 taps of A
-    flops = passes * (2 * 2 * band * 100 + 2 * (4 * 100 * 100 + 4 * 4 * 100))
-    nbytes = 4 * (100 * 100 + 3 + 100 * 100 + 16)
-    t_ops = b * flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = b * nbytes / PEAK_HBM_BPS * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
 def edge_maps(dev, seed=0):
     """Contact maps at the kernel's edges: contacts on rows and columns 0
     and 99 (and the four corners) over noise, then maps where every pixel is
@@ -832,23 +796,6 @@ def phase_times_precision(dev):
                 f"the f32 kernel between them {f_ms:.4f} ms, plain {prec} (TF32 off) {p_ms:.4f} ms, "
                 f"bound {bound:.4f} ms ({by}), {bound / k_ms * 100:.1f}% of the bound")
     return out
-
-
-def sr_flops_per_frame(scale=10, seqs=1, pattern_layers=6, force_layers=1, hw=None):
-    """Forward conv FLOPs of one frame of TactileSR (2 x MACs; the resizes,
-    BN and activations left out): every conv runs at (4 x scale)^2."""
-    px = (hw or 4 * scale) ** 2
-
-    def conv(cin, cout, k):
-        return 2 * cin * cout * k * k * px
-
-    branch = conv(3, 64, 3) + conv(64, 64, 3)
-    msrb = conv(64, 64, 3) + conv(64, 64, 5) + conv(128, 128, 3) + conv(128, 128, 5) + conv(256, 64, 1)
-    force = conv(3, 64, 3) + force_layers * 2 * conv(64, 64, 3)
-    head = conv(128, 128, 3) + conv(128, 1, 3)
-    parts = {"pattern branches": seqs * branch, "inputContact": conv(64 * seqs, 64, 3),
-             "MSRBs": pattern_layers * msrb, "force branch": force, "head": head}
-    return sum(parts.values()), parts
 
 
 class CapturableAdam(HookBase):
@@ -1223,18 +1170,6 @@ def phase_remat(work, dev, sr_dir):
             f"{worst:.3e}, num_batches_tracked equal, losses max rel {out[mode]['loss_rel']:.3e} "
             "(rtol 1e-5) ok")
     return out
-
-
-def cnn_flops_per_frame(scale=10, msrb_cnt=6):
-    """Forward conv FLOPs of one TactileSRCNN frame (2 x MACs), at (4 x
-    scale)^2 pixels."""
-    px = (4 * scale) ** 2
-
-    def conv(cin, cout, k):
-        return 2 * cin * cout * k * k * px
-
-    msrb = conv(64, 64, 3) + conv(64, 64, 5) + conv(128, 128, 3) + conv(128, 128, 5) + conv(256, 64, 1)
-    return conv(3, 64, 3) + 2 * conv(64, 64, 3) + msrb_cnt * msrb + conv(64, 1, 3)
 
 
 def phase_cnn(work, dev, sr_dir):
@@ -1786,39 +1721,6 @@ def phase_serving_mtsr(work, dev):
     return dict(errors=errs, ms=best, ms_runs=times, measured_crossover=measured, exported=exported)
 
 
-HOST_LAUNCH = re.compile(r"^(cudaLaunchKernel|cudaLaunchKernelExC|cuLaunchKernel|cuLaunchKernelEx|"
-                         r"cudaGraphLaunch|cudaMemcpyAsync|cudaMemsetAsync)")
-
-
-def device_profile(fn, n=5):
-    """One torch.profiler trace of ``n`` calls: the device's busy ms per call
-    (the kernels' and copies' own device times summed; None when the trace
-    holds no device time), device ops per call, the five largest, and the
-    host's launch calls per call (kernel launches, copies, memsets and
-    graph launches: a replayed CUDA graph is one)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    # GPU-side user annotations (e.g. "Optimizer.step#Adam.step") span the
-    # kernels inside them: counting them would count those kernels twice
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    busy = sum(e.self_device_time_total for e in dev) / 1e3 / n
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.device_type == DeviceType.CPU and HOST_LAUNCH.match(e.key))
-    return dict(busy_ms=busy if busy > 0 else None,
-                kernels=sum(e.count for e in dev) / n,
-                host_launches=launches / n,
-                top=[(e.key[:60], round(e.self_device_time_total / 1e3 / n, 4)) for e in top])
-
-
 def _eager_step(t):
     """One step of trainer ``t`` through its eager step function, on a
     fixed batch (the first of a seeded epoch)."""
@@ -2002,6 +1904,125 @@ def phase_captured_times(runs):
     return out
 
 
+BURN_IN_S = 3.0
+# the bench's measurements cut in rounds and calls (its batches kept)
+BENCH_PLAN = bench.Plan(rounds=1, iters=2, latency_calls=5, profile_calls=3, mtsr_rounds=1,
+                        mtsr_iters=2, train_steps=6, tpsf_rounds=1, tpsf_calls=10)
+BENCH_TPSF_BATCH = 8192
+BENCH_KEYS = {"metric", "value", "unit", "extras", "device"}
+
+
+def phase_device(dev):
+    """The device utilities: the memory scan, the freest device and the
+    bf16 matmul burn-in, whose TFLOP/s must be above 0 and at most 105% of
+    the bf16 dense peak."""
+    mem = parse_device_memory()
+    check(len(mem) == torch.cuda.device_count() and all(m["free_memory"] > 0 for m in mem),
+          f"parse_device_memory: {mem}")
+    index, _, name, free = select_device_with_most_free_memory()
+    check(name == torch.cuda.get_device_name(index), f"selected {index}: {name}")
+    tflops = burn_in(dev, test_time=BURN_IN_S)
+    check(0 < tflops <= 1.05 * PEAK_BF16_FLOPS / 1e12,
+          f"burn-in {tflops:.1f} TFLOP/s outside (0, {1.05 * PEAK_BF16_FLOPS / 1e12:.0f}]")
+    log(f"[device] {mem}; freest: {index} ({name}, {free / 1e9:.1f} GB free); burn-in "
+        f"{tflops:.1f} TFLOP/s bf16 ({tflops * 1e12 / PEAK_BF16_FLOPS * 100:.1f}% of the dense peak)")
+    return tflops
+
+
+def phase_bench(dev):
+    """``python -m tactilesr_torch.bench``'s runs at ``BENCH_PLAN``: the
+    default (STSR, with the MTSR and train extras), ``--seqs 7``,
+    ``--train`` and ``--tpsf --batch 8192`` at each precision.  Each record
+    goes through JSON as the CLI prints it and must carry its keys, a
+    positive value and an ``mfu`` in (0, 1.05), or for ``--tpsf`` a share of
+    the bound in (0, 1.05) with exactly its own kernel launched (counted
+    from 0 per precision: that path's launches)."""
+    out = {}
+    for key, run in (("default", lambda: bench.bench_serving(1, dev, BENCH_PLAN)),
+                     ("seqs7", lambda: bench.bench_serving(7, dev, BENCH_PLAN)),
+                     ("train", lambda: bench.bench_train(dev, BENCH_PLAN))):
+        rec = json.loads(json.dumps(run()))
+        check(BENCH_KEYS | {"mfu"} <= set(rec) and rec["value"] > 0, f"bench {key}: {rec}")
+        check(rec["mfu"] is not None and 0 < rec["mfu"] < 1.05, f"bench {key}: mfu {rec['mfu']}")
+        out[key] = rec
+        log(f"[bench] {key}: " + json.dumps(rec))
+    launches = {}
+    for prec, (name, _) in tcuda.FORWARD_KERNELS.items():
+        tcuda.reset_launch_counts()
+        rec = json.loads(json.dumps(bench.bench_tpsf(BENCH_TPSF_BATCH, prec, dev, BENCH_PLAN)))
+        counts = launches[f"bench_tpsf_{prec}"] = dict(tcuda.launch_counts)
+        want = 1 + BENCH_PLAN.tpsf_rounds * BENCH_PLAN.tpsf_calls  # the launch check, then the timed calls
+        check(counts[name] == want and sum(counts.values()) == want,
+              f"bench --tpsf --precision {prec}: launches {counts}, want {want} of {name} alone")
+        check(BENCH_KEYS <= set(rec) and rec["value"] > 0 and 0 < rec["extras"]["bound_share"] < 1.05,
+              f"bench --tpsf {prec}: {rec}")
+        out[f"tpsf_{prec}"] = rec
+        log(f"[bench] tpsf {prec}: " + json.dumps(rec))
+    return out, launches
+
+
+def phase_bench_server():
+    """``python -m tactilesr_torch.scripts.bench_server --clients 16``: its
+    phases over HTTP, each with frames/s and dispatches, and the overload
+    phase's queue never above its bound, only 200/429/504 answers."""
+    args = bench_server.parse_args(["--clients", "16"])
+    res = bench_server.run(args)
+    for key, r in res.items():
+        if key.startswith(("sequential", "concurrent")):
+            check(r["frames_per_sec"] > 0 and r["dispatches"] > 0, f"bench_server {key}: {r}")
+    over = res["overload_bounded_queue"]
+    check(over["max_queue_depth_frames_observed"] <= args.max_queue_frames
+          and set(over["status_counts"]) <= {"200", "429", "504"} and over["connection_errors"] == 0,
+          f"bench_server overload: {over}")
+    log("[bench_server] " + json.dumps(res))
+    return res
+
+
+def phase_interchange(work, stsr_ckpt, sr_dir):
+    """The trained STSR ``.pth`` -> JAX ``.ckpt`` (``compat.torch_convert``)
+    -> ``.pth`` (``compat.export_torch``): every parameter and running
+    statistic bit-equal (``num_batches_tracked`` comes back 0: JAX keeps no
+    such counter), the ``.ckpt`` read directly the same, and all three files
+    served on the card to the same output."""
+    d = os.path.join(work, "interchange")
+    ckpt = convert_checkpoint_file(stsr_ckpt, os.path.join(d, "stsr.ckpt"), arch="tactileSR")
+    back = export_checkpoint_file(ckpt, os.path.join(d, "stsr_back.pth"), arch="tactileSR")
+    orig = load_checkpoint_file(stsr_ckpt)["model"]
+    for path in (back, ckpt):
+        got = load_checkpoint_file(path)["model"]
+        check(set(got) == set(orig), f"{path}: keys differ")
+        for k, v in orig.items():
+            want = torch.zeros_like(v) if k.endswith("num_batches_tracked") else v
+            check(torch.equal(got[k], want), f"{path}: {k} differs")
+    with np.load(os.path.join(sr_dir, "SRdataset_test.npz")) as z:
+        lr = np.ascontiguousarray(z["LR"][:256, :3])
+    served = [SRPredictor(p, buckets=(256,)).predict(lr) for p in (stsr_ckpt, ckpt, back)]
+    check(all(np.array_equal(served[0], s) for s in served[1:]), "served outputs differ")
+    log(f"[interchange] .pth -> .ckpt ({os.path.getsize(ckpt)} B) -> .pth: {len(orig)} tensors "
+        f"bit-equal; {lr.shape[0]} rows served equal from all three (max {float(served[0].max()):.4f})")
+    return len(orig)
+
+
+def phase_graft_entry(dev):
+    """``graft_entry.entry()``: the flagship bf16 STSR and its example batch
+    on the card; the forward finite, (32, 1, 40, 40), and within
+    ``BF16_REL`` of the output range of the same weights' f32 forward."""
+    model, x = graft_entry.entry()
+    check(x.is_cuda and next(model.parameters()).is_cuda, "entry() is not on the card")
+    ref = bench.flagship_model(dtype=torch.float32)
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        out = model(x)
+        want = ref.to(dev).eval()(x)
+    check(out.shape == (32, 1, 40, 40) and torch.isfinite(out).all(), f"entry forward {out.shape}")
+    span = float(want.abs().max())
+    err = float((out - want).abs().max())
+    check(err <= BF16_REL * max(span, 1e-12), f"entry bf16 vs f32: {err:.4g} > {BF16_REL} x {span:.4g}")
+    log(f"[graft_entry] forward {tuple(out.shape)} {out.dtype}; bf16 vs f32 max|d| {err:.4g} of "
+        f"range {span:.4g}")
+    return dict(max_abs=err, ref_max=span)
+
+
 class PhaseClock:
     """Seconds of each phase, printed as it ends."""
 
@@ -2093,6 +2114,11 @@ def main(argv=None):
             ("stage 1", None, tpsf_capt, None),
             ("stage 1 default", prec_runs["eager"][0], prec_runs["captured"][0], None),
             ("TactileSRCNN", cnn, cnn, 3 * cnn_flops_per_frame() * cnn.batch_size)])
+        burn_tflops = phase("device", phase_device, dev)
+        bench_recs, bench_launches = phase("bench", phase_bench, dev)
+        server_bench = phase("bench_server", phase_bench_server)
+        n_interchanged = phase("interchange", phase_interchange, work, stsr_ckpt, sr_dir)
+        entry_dev = phase("graft_entry", phase_graft_entry, dev)
     log(f"[times] SR epochs: STSR {stsr_sps:.1f} samples/s, MTSR {mtsr_sps:.1f} samples/s; "
         f"STSR step {sr_t['STSR']['step_ms']:.4f} ms (MFU {sr_t['STSR']['mfu'] * 100:.2f}%), "
         f"MTSR step {sr_t['MTSR']['step_ms']:.4f} ms (MFU {sr_t['MTSR']['mfu'] * 100:.2f}%); "
@@ -2105,12 +2131,17 @@ def main(argv=None):
         f"{cnn_info}; {n_trace_kernels} kernels in the profiler trace")
     log(f"[times] serving: server {json.dumps(server)}; MTSR branch layouts "
         f"{json.dumps({k: mtsr_served[k] for k in ('ms', 'measured_crossover')})}")
+    log(f"[times] entries: burn-in {burn_tflops:.1f} TFLOP/s; bench "
+        + json.dumps({k: r["value"] for k, r in bench_recs.items()})
+        + f"; bench_server coalescing x{server_bench['coalescing_speedup_1frame']:.2f}; interchange "
+        f"{n_interchanged} tensors bit-equal; graft entry {json.dumps(entry_dev)}")
     smi = nvidia_smi_line()
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s: {phase.seconds}")
     by_path = {"training": train_launches, "training_captured": capt_launches,
                "training_precision": prec_runs["eager"][1],
                "training_precision_captured": prec_runs["captured"][1],
-               "generation": gen_launches, "generation_seqs": seqs_launches, **gen_prec_launches}
+               "generation": gen_launches, "generation_seqs": seqs_launches, **gen_prec_launches,
+               **bench_launches}
     main_t = times[MAIN_BATCH]
     record = {"kernels": [
         {

@@ -3,7 +3,9 @@ numpy arrays) -> the port's state_dicts, in the reference layout.
 
 Conv kernels go HWIO -> OIHW, Dense kernels are transposed, BN
 scale/bias/mean/var become weight/bias/running_mean/running_var (plus the
-``num_batches_tracked`` buffer a strict load expects).  The mapping is the
+``num_batches_tracked`` buffer a strict load expects, 0: JAX does not
+count).  Leaves may be numpy arrays or, for bf16 leaves read from a
+``.ckpt``, torch tensors; every tensor comes out f32.  The mapping is the
 same as ``tactilesr_tpu/compat/export_torch.py``'s, kept here so the port
 needs nothing of the JAX package; the tests hold the two key sets equal.
 """
@@ -20,11 +22,13 @@ __all__ = ["tactile_sr_state_dict", "tactile_srcnn_state_dict", "tpsf_net_state_
 
 
 def _t(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(torch.float32, copy=True)
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
 def _put_conv(sd: dict, prefix: str, entry: dict) -> None:
-    sd[f"{prefix}.weight"] = _t(np.asarray(entry["conv"]["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{prefix}.weight"] = _t(entry["conv"]["kernel"]).permute(3, 2, 0, 1).contiguous()
     if "bias" in entry["conv"]:
         sd[f"{prefix}.bias"] = _t(entry["conv"]["bias"])
 
@@ -98,6 +102,6 @@ def tpsf_net_state_dict(variables: Dict[str, dict]) -> dict:
     sd: dict = {}
     for idx, torch_idx in enumerate([1, 3, 5, 7]):
         linear = params[f"mlp_{idx}"]["linear"]
-        sd[f"MLP_layer.{torch_idx}.weight"] = _t(np.asarray(linear["kernel"]).T)
+        sd[f"MLP_layer.{torch_idx}.weight"] = _t(linear["kernel"]).T.contiguous()
         sd[f"MLP_layer.{torch_idx}.bias"] = _t(linear["bias"])
     return sd

@@ -41,9 +41,11 @@ def setup_logger(
     output_dir: Optional[str] = None,
     process_index: int = 0,
     level: int = logging.INFO,
+    stream=None,
 ) -> logging.Logger:
-    """Idempotent logger setup: console handler on process 0 only; a
-    per-process file handler when ``output_dir`` is given."""
+    """Idempotent logger setup: console handler on process 0 only (on
+    ``stream``, stdout by default; the first call decides); a per-process
+    file handler when ``output_dir`` is given."""
     logger = logging.getLogger(name)
     logger.setLevel(level)
     logger.propagate = False
@@ -52,7 +54,7 @@ def setup_logger(
     console_key = (name, "console", process_index)
     if process_index == 0 and console_key not in _LOGGER_INITIALIZED:
         _LOGGER_INITIALIZED.add(console_key)
-        ch = logging.StreamHandler(sys.stdout)
+        ch = logging.StreamHandler(stream or sys.stdout)
         ch.setFormatter(_ColorFormatter(fmt, datefmt="%m/%d %H:%M:%S"))
         logger.addHandler(ch)
 

@@ -565,7 +565,9 @@ def _cli(argv=None):
         prog="python -m tactilesr_torch.server",
         description="Micro-batched HTTP SR serving from a port checkpoint",
     )
-    p.add_argument("--checkpoint", required=True, help="port .pth bundle")
+    p.add_argument("--checkpoint", required=True, help="port .pth bundle, JAX .ckpt or reference .pth")
+    p.add_argument("--allow-pickle", action="store_true",
+                   help="unpickle a reference .pth that holds Python objects (only for a trusted file)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8912)
     p.add_argument("--linger-ms", type=float, default=2.0)
@@ -606,6 +608,7 @@ def _cli(argv=None):
         model_arch=args.model_arch,
         branch_mode=args.branch_mode,
         device=args.device,
+        allow_pickle=args.allow_pickle,
     )
     print(json.dumps({"serving": f"http://{srv.server_address[0]}:{srv.server_address[1]}"}), flush=True)
     try:

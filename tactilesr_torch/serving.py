@@ -1,6 +1,8 @@
 """Serving: batched SR inference from a checkpoint.
 
-``SRPredictor`` loads a port ``.pth`` bundle, folds it into the fused
+``SRPredictor`` loads a checkpoint (a port ``.pth`` bundle, a JAX ``.ckpt``
+or a reference ``.pth``: ``runtime/checkpoint.py::load_checkpoint_file``,
+the pickled reference forms only with ``allow_pickle``), folds it into the fused
 serving graph (``models/inference.py``; ``fused=False`` serves the layer-by-
 layer eval forward instead), keeps the weights on the device, and streams
 (N, C, 4, 4) readings to (N, 1, 4s, 4s) contact-pressure maps.  Requests are
@@ -73,6 +75,7 @@ class SRPredictor:
         device="cuda",
         model_arch: str = "TactileSR",
         branch_mode: str = "auto",
+        allow_pickle: bool = False,
     ):
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {compute_dtype!r}")
@@ -90,6 +93,7 @@ class SRPredictor:
         self._pattern_layers = pattern_layers
         self._force_layers = force_layers
         self.branch_mode = resolve_branch_mode(branch_mode, seqs_cnt)
+        self.allow_pickle = allow_pickle
         self._weights = None
         self._load_weights(checkpoint_path)
         logger.info("SRPredictor ready: %s (buckets %s, fused=%s, branch_mode %s, %s on %s)",
@@ -126,7 +130,7 @@ class SRPredictor:
         """Load (or hot-swap) weights.  All work happens on locals and the
         weights are rebound only after every check passed, so a refused
         checkpoint leaves the previous weights serving."""
-        state_dict = load_checkpoint_file(checkpoint_path)["model"]
+        state_dict = load_checkpoint_file(checkpoint_path, allow_pickle=self.allow_pickle)["model"]
         try:
             new = self._build(state_dict)
         except KeyError as e:
@@ -262,7 +266,9 @@ def _cli(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     p = argparse.ArgumentParser(prog="python -m tactilesr_torch.serving",
                                 description="Batched SR inference from a port checkpoint")
-    p.add_argument("--checkpoint", required=True, help="port .pth bundle")
+    p.add_argument("--checkpoint", required=True, help="port .pth bundle, JAX .ckpt or reference .pth")
+    p.add_argument("--allow-pickle", action="store_true",
+                   help="unpickle a reference .pth that holds Python objects (only for a trusted file)")
     p.add_argument("--input", required=True, help=".npz with an 'LR' array")
     p.add_argument("--output", default=None, help=".npz to write 'SR' maps to")
     p.add_argument("--seqs-cnt", type=int, default=1)
@@ -290,7 +296,7 @@ def _cli(argv=None):
         args.checkpoint, scale_factor=args.scale_factor, seqs_cnt=args.seqs_cnt,
         pattern_layers=args.pattern_layers, force_layers=args.force_layers,
         compute_dtype=args.compute_dtype, fused=not args.no_fused, device=args.device,
-        model_arch=args.model_arch, branch_mode=args.branch_mode,
+        model_arch=args.model_arch, branch_mode=args.branch_mode, allow_pickle=args.allow_pickle,
     )
     pred.warmup()
     t0 = time.perf_counter()

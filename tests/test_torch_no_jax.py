@@ -1,7 +1,7 @@
 """The port stands alone: every tactilesr_torch module (the SR recipe and
 its two entries among them), chip_smoke.py's own imports and the stage-1
-training entry load and run in a process where jax, flax, optax and
-tactilesr_tpu cannot be imported."""
+training entry load and run in a process where jax, flax, optax,
+ml_dtypes and tactilesr_tpu cannot be imported."""
 
 import os
 import pkgutil
@@ -16,7 +16,7 @@ _BLOCKER = """
 import importlib.abc, sys
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "tactilesr_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "tactilesr_tpu"):
             raise ImportError("blocked: " + name)
         return None
 sys.meta_path.insert(0, _Block())
@@ -40,7 +40,9 @@ def _run(code):
 def test_port_imports_nothing_of_jax():
     mods = _modules()
     for m in ("ops.cuda", "serving", "server", "tasks.tpsf_task", "tasks.sr_task",
-              "tasks.sr_seqs_task"):
+              "tasks.sr_seqs_task", "__main__", "bench", "graft_entry", "scripts",
+              "scripts.bench_server", "scripts.profile_serving", "scripts.profile_train",
+              "compat.torch_convert", "compat.export_torch", "runtime.device"):
         assert f"tactilesr_torch.{m}" in mods, m
     code = (
         "import importlib\n"
