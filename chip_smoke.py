@@ -10,7 +10,7 @@ Phases (any failure exits non-zero and prints no result line):
                  backward must fit 2 blocks per SM, both bf16 forwards 3,
                  and no kernel spill
 2. kernel     -- the tPSF physics kernel vs its plain PyTorch version at
-                 B in {1, 5, 256, 8192} (TF32 off for the plain version;
+                 B in {1, 5, 128, 256, 8192} (TF32 off for the plain version;
                  HR rtol/atol 1e-4, LR rtol 1e-4 / atol 1e-6); the backward
                  kernel vs its plain version ``physics_vjp_plain`` at the same
                  B, with LR and HR cotangents, for abm and depth (rtol 1e-3,
@@ -58,6 +58,31 @@ Phases (any failure exits non-zero and prints no result line):
                  full-width f32 STSR at batch 8 on the card and on the CPU
                  (``matmul_precision: highest`` through the recipes'
                  ``apply_matmul_precision``), held against each other
+   data_parallel -- 2 gloo ranks on cuda:0 (this script with
+                 ``--dp-rank``, started with the ``TACTILESR_*`` variables;
+                 NCCL refuses two ranks on one card) through the STSR entry
+                 at full width, B=32 (16 rows a rank): 4 f32 steps
+                 (``matmul_precision: highest``, cuDNN deterministic)
+                 against the same steps in one process (losses rtol 1e-4,
+                 state by ``_state_deviation``: BN statistics at atol 1e-5
+                 after step 1, at ``_pre_bn_bias_stats_atol`` after step 4;
+                 replicas equal bit for bit);
+                 ``--scan_epochs true`` refused under gloo (its collectives
+                 cannot be captured); a bf16 epoch of 10 steps at the
+                 recipe's defaults and a
+                 resume of one more (replicas' model and Adam state equal);
+                 one tPSF epoch at B=256 (128 rows a rank): in each rank
+                 both forward wrappers at least once a step and the
+                 backward kernel exactly once a step.  Then a one-rank NCCL
+                 group: the f32 STSR at B=32 with ``scan_epochs`` over an
+                 explicit one-rank mesh, its all_reduce issued inside the
+                 capture and never from the host at a replay, losses equal
+                 to the mesh-free captured run's at rtol 1e-6 (a one-rank
+                 NCCL sum launches no kernel: ``graft_entry --ranks N`` on N
+                 cards holds the replayed collective); then
+                 ``SRPredictor`` over [cuda:0, cuda:0] at bucket 1024
+                 against one device (f32, TF32 off, rtol 1e-4).  Step times
+                 of the gloo ranks and the NCCL replay are printed
    sr_captured -- 5 f32 steps of that STSR at batch 8, captured (the
                  recipes' 3 eager warm-up steps, the capture, 2 replays)
                  against eager with capturable Adam (losses rtol 1e-4,
@@ -218,7 +243,7 @@ from tactilesr_torch.tasks import sr_seqs_task, sr_task, tpsf_task  # noqa: E402
 
 HR_TOL = dict(rtol=1e-4, atol=1e-4)
 LR_TOL = dict(rtol=1e-4, atol=1e-6)
-KERNEL_BATCHES = (1, 5, 256, 8192)
+KERNEL_BATCHES = (1, 5, 128, 256, 8192)  # 128: a data_parallel rank's rows
 MAIN_BATCH = 256  # generate single --batch 256 and the recipe's train batch
 GRAD_TOL = dict(rtol=1e-3, atol=1e-6)  # tests/test_pallas_kernels.py:45
 TRAIN_EPOCHS = 2
@@ -545,7 +570,8 @@ PHYS_BF16_REL = 1e-3
 PHYS_BF16_F32_ENVELOPE = 1e-2
 BF16_KERNELS = {"default": "tpsf_physics_bf16", "high": "tpsf_physics_bf16x3"}
 BF16_PASSES = {"default": 1, "high": 3}
-# KERNEL_BATCHES and 397, which is not a whole number of waves
+# 1, 5, 256 and 8192 as in KERNEL_BATCHES, and 397, which is not a whole
+# number of waves
 PHYS_BF16_BATCHES = (1, 5, 256, 397, 8192)
 
 
@@ -981,6 +1007,335 @@ def phase_sr_parity(work, sr_dir, devices=("cuda", "cpu")):
         f"after step {SR_PARITY_STEPS} {last} (stats atol 1e-5 then 5e-4; parameters within "
         "2 lr steps, at most 1% of their elements beyond 1e-5) ok")
     return dict(loss_rel=loss_err, step1=first, last=last)
+
+
+# the data_parallel phase: 2 gloo ranks share cuda:0 (NCCL refuses two ranks
+# on one card), each rank a subprocess of this script (``--dp-rank SPEC``)
+DP_RANKS = 2
+DP_BATCH = 32  # the recipe's global batch: 16 rows a rank
+DP_F32_STEPS = 4
+DP_BF16_ROWS = 320  # 10 steps an epoch
+DP_NCCL_STEPS = SCAN_WARMUP_STEPS + 5  # warm-up, the capture, then replays
+DP_BUCKET = 1024
+DP_TIMEOUT_S = 600
+
+
+class StepClock(HookBase):
+    """Host ms of each iteration, the card synced at its end."""
+
+    priority = 10
+
+    def __init__(self):
+        self.ms = []
+
+    def before_iter(self):
+        torch.cuda.synchronize()
+        self._t0 = time.perf_counter()
+
+    def after_iter(self):
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - self._t0) * 1e3)
+
+
+class StepStates(HookBase):
+    """The model's state (on the CPU) after each iteration."""
+
+    def __init__(self):
+        self.states = []
+
+    def after_iter(self):
+        self.states.append({k: v.detach().cpu().clone()
+                            for k, v in self.trainer.model.state_dict().items()})
+
+
+def _pre_bn_bias_stats_atol(lr, steps, momentum=0.1):
+    """How far BN running means may part after ``steps`` steps of two runs
+    whose parameters part as ``_state_deviation`` allows: the conv bias in
+    front of a BN (true gradient 0) may differ by 2 lr (k - 1) when step k
+    reads it, and the running mean takes the batch mean at weight
+    momentum, decaying by (1 - momentum) a step."""
+    return sum(momentum * (1 - momentum) ** (steps - k) * 2 * lr * (k - 1)
+               for k in range(1, steps + 1))
+
+
+def _median_step_ms(clock):
+    """The median of an eager run's step times, its first two (cuDNN's
+    algorithm search) left out."""
+    return float(np.median(clock.ms[2:])) if len(clock.ms) > 2 else None
+
+
+def dp_rank(spec_path):
+    """One gloo rank of the data_parallel phase (run as ``chip_smoke.py
+    --dp-rank SPEC`` with the ``TACTILESR_*`` variables): the f32 steps,
+    the bf16 epoch and its resume, the tPSF epoch; prints one RESULT line."""
+    from tactilesr_torch.parallel import all_gather_object, init_distributed
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = init_distributed()
+    check(torch.distributed.get_backend() == "gloo" and torch.distributed.get_world_size() == DP_RANKS,
+          f"rank {rank}: {torch.distributed.get_backend()} world {torch.distributed.get_world_size()}")
+    out = {"rank": rank, "device": str(torch.device("cuda", torch.cuda.current_device())),
+           "seconds": {}}
+
+    t0 = time.perf_counter()
+    clock, snaps = StepClock(), StepStates()
+    t = sr_task._cli(spec["f32_argv"], hooks=[clock, snaps])
+    check(t.mesh is not None and t.mesh.size == DP_RANKS and t.step == DP_F32_STEPS,
+          f"f32 run: mesh {t.mesh}, {t.step} steps")
+    torch.save({"after_1": snaps.states[0], "last": snaps.states[-1]},
+               os.path.join(spec["dir"], f"f32_rank{rank}.pt"))
+    out["f32"] = {"losses": _losses(t)[:-1] if rank == 0 else [], "step_ms": clock.ms}
+    out["seconds"]["f32"] = time.perf_counter() - t0
+    try:  # gloo's collectives cannot be captured: scan_epochs must refuse, not run uncaptured
+        sr_task._cli(spec["f32_argv"] + ["--scan_epochs", "true", "--save_dir",
+                                         os.path.join(spec["dir"], "scan_gloo")])
+        check(False, "scan_epochs under gloo on CUDA ran")
+    except RuntimeError as e:
+        check("gloo" in str(e), f"scan_epochs under gloo raised {e!r}")
+
+    t0 = time.perf_counter()
+    clock = StepClock()
+    t = sr_task._cli(spec["bf16_argv"], hooks=[clock])
+    check(t.model.dtype == torch.bfloat16 and t.step == t.epoch_len, f"bf16 run: {t.step} steps")
+    t = sr_task.main(t.config, max_epochs=2, auto_resume=True)
+    check(t.start_iter == t.epoch_len and t.step == 2 * t.epoch_len,
+          f"resume: from {t.start_iter}, {t.step} steps")
+    digests = all_gather_object(t.state_digest())
+    check(len(set(digests)) == 1, f"the replicas differ after the resume: {digests}")
+    losses = t.metric_storage["total_loss"] if rank == 0 else None
+    if rank == 0:
+        check(len(losses) == 2 * t.epoch_len and np.isfinite(losses.global_sum),
+              f"bf16 losses: {len(losses)} logged, global sum {losses.global_sum}")
+    out["bf16"] = {"steps": t.step, "step_ms": _median_step_ms(clock),
+                   "mean_loss": losses.global_avg if rank == 0 else None,
+                   "eval": {k: t.metric_storage[k].latest for k in ("test_loss", "test_PSNR")}}
+    out["seconds"]["bf16"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tcuda.reset_launch_counts()
+    t = tpsf_task._cli(spec["tpsf_argv"])
+    torch.cuda.synchronize()
+    launches = dict(tcuda.launch_counts)
+    steps = t.step
+    check(t.mesh.size == DP_RANKS and (t.n_train, t.epoch_len) == (7296, 29),
+          f"tPSF: mesh {t.mesh}, {t.n_train} samples in {t.epoch_len} steps")
+    for name in ("tpsf_physics", "tpsf_physics_fused"):
+        check(launches[name] >= steps, f"rank {rank}: {name} {launches[name]} in {steps} steps")
+    check(launches["tpsf_physics_bwd"] == steps,
+          f"rank {rank}: tpsf_physics_bwd {launches['tpsf_physics_bwd']} in {steps} steps")
+    if rank == 0:
+        check(np.isfinite(t.metric_storage["total_loss"].global_sum), "tPSF losses not finite")
+    out["tpsf"] = {"steps": steps, "launches": launches,
+                   "rows_per_rank": t.batch_size // t.mesh.size}
+    out["seconds"]["tpsf"] = time.perf_counter() - t0
+    torch.distributed.destroy_process_group()
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+def _run_ranks(spec_path):
+    """Start the gloo ranks, wait for every one; any rank's failure raises."""
+    from tactilesr_torch.parallel import rank_results, spawn_local_ranks
+
+    procs = spawn_local_ranks([sys.executable, os.path.abspath(__file__), "--dp-rank", spec_path],
+                              DP_RANKS, backend="gloo")
+    return rank_results(procs, DP_TIMEOUT_S)
+
+
+class _CountAllReduce:
+    """``torch.distributed.all_reduce`` counted by whether the current
+    stream is capturing a CUDA graph."""
+
+    def __init__(self):
+        self.calls = {"eager": 0, "captured": 0}
+        self._orig = torch.distributed.all_reduce
+
+    def __call__(self, *args, **kwargs):
+        self.calls["captured" if torch.cuda.is_current_stream_capturing() else "eager"] += 1
+        return self._orig(*args, **kwargs)
+
+
+def _nccl_one_rank(work, dev, sr_dir):
+    """The full-width f32 STSR at B=32 with ``scan_epochs`` for one epoch
+    (warm-up, capture, replays), over an explicit one-rank mesh in a
+    one-rank NCCL group and without a mesh: losses at rtol 1e-6 (B=32, all
+    rows valid: the mesh step's scaling by 32 and the one-rank sum are
+    exact); the all_reduce issued in the capture and never from the host at
+    a replay; each graph's replay time and device ops."""
+    import socket
+
+    from tactilesr_torch.parallel import make_mesh
+    from tactilesr_torch.parallel.dist import DIST_TIMEOUT
+
+    cfg = dict(tactileSR_config, compute_dtype="float32", warmup_t=0, train_batch_size=DP_BATCH,
+               matmul_precision="highest")
+    n = DP_BATCH * DP_NCCL_STEPS
+    with np.load(os.path.join(sr_dir, "SRdataset_train.npz")) as z:
+        arrays = {"LR": z["LR"][:n], "HR": z["HR"][:n]}
+    init = sr_task.build_model(cfg).state_dict()
+    apply_matmul_precision(cfg)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                         world_size=1, rank=0, timeout=DIST_TIMEOUT)
+    counter = _CountAllReduce()
+    runs = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.distributed.all_reduce = counter
+        for name, mesh in (("nccl_mesh", make_mesh()), ("no_mesh", None)):
+            model = sr_task.build_model(cfg)
+            model.load_state_dict(init)
+            t = _sr_trainer(cfg, model, arrays, os.path.join(work, f"dp_{name}"), dev, max_epochs=1,
+                            epoch_len=DP_NCCL_STEPS, scan_epochs=True, mesh=mesh)
+            t.train(auto_resume=False)
+            check(t._graph is not None and t.step == DP_NCCL_STEPS, f"{name}: no graph replayed")
+            runs[name] = t
+        calls = dict(counter.calls)
+        torch.distributed.all_reduce = counter._orig
+        times = {name: captured_step_times(t, iters=4) for name, t in runs.items()}
+        names = {name: _replay_op_names(t) for name, t in runs.items()}
+    finally:
+        torch.distributed.all_reduce = counter._orig
+        torch.backends.cudnn.deterministic = prev
+        torch.distributed.destroy_process_group()
+    mesh_t, plain_t = runs["nccl_mesh"], runs["no_mesh"]
+    check(mesh_t.mesh.size == 1 and plain_t.mesh is None, "the meshes")
+    # 3 eager warm-up steps and one capture call the collective; the replays
+    # (and the mesh-free run) never do from the host
+    check(calls == {"eager": SCAN_WARMUP_STEPS, "captured": 1},
+          f"all_reduce calls {calls}: expected {SCAN_WARMUP_STEPS} eager and 1 in the capture")
+    np.testing.assert_allclose(_losses(mesh_t), _losses(plain_t), rtol=1e-6)
+    # NCCL's one-rank in-place sum may enqueue no device work at all
+    nccl_ops = {name: sorted(k for k in ops if "nccl" in k.lower()) for name, ops in names.items()}
+    log(f"[data_parallel] one-rank NCCL group, full-width f32 STSR at B={DP_BATCH}, scan_epochs "
+        f"{DP_NCCL_STEPS} steps ({SCAN_WARMUP_STEPS} warm-up, the capture, replays): all_reduce "
+        f"calls {calls}; losses {_losses(mesh_t)} vs no mesh {_losses(plain_t)} (rtol 1e-6) ok; "
+        f"per replay: " + "; ".join(
+            f"{name} {r['step_ms']:.4f} ms, {r['step_profile']['kernels']:.0f} device ops, NCCL "
+            f"ops {nccl_ops[name]}, largest {r['step_profile']['top'][:2]}"
+            for name, r in times.items()))
+    return {name: {"step_ms": r["step_ms"], "device_ops": r["step_profile"]["kernels"],
+                   "nccl_ops": nccl_ops[name]}
+            for name, r in times.items()} | {"all_reduce_calls": calls}
+
+
+def _replay_op_names(t):
+    """The names of the device ops of one replay of ``t``'s captured step
+    (torch.profiler), the step counter put back after it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t._scan.k.zero_()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t._graph.replay()
+        torch.cuda.synchronize()
+    t._scan.k.zero_()
+    return {e.key for e in bench.device_ops(prof)}
+
+
+def _two_device_predictor(dev, stsr_ckpt, sr_dir):
+    """SRPredictor over a two-device mesh (cuda:0 twice) at bucket 1024
+    against the one-device predictor, f32 with TF32 off: rtol 1e-4."""
+    from tactilesr_torch.parallel import make_mesh
+
+    with np.load(os.path.join(sr_dir, "SRdataset_test.npz")) as z:
+        lr = np.resize(z["LR"][:, :3], (DP_BUCKET, 3, 4, 4)).astype(np.float32)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        kw = dict(compute_dtype="float32", buckets=(DP_BUCKET,))
+        two = SRPredictor(stsr_ckpt, mesh=make_mesh([dev, dev]), **kw)
+        one = SRPredictor(stsr_ckpt, device=dev, **kw)
+        check(two.buckets == (DP_BUCKET,) and len(two._replicas) == 2, "two replicas")
+        got, want = two.predict(lr), one.predict(lr)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    log(f"[data_parallel] SRPredictor over [{dev}, {dev}] at bucket {DP_BUCKET} (two shards of "
+        f"{DP_BUCKET // 2}), f32: max|d| {err:.3e} of max {float(np.abs(want).max()):.4g} against "
+        "one device ok")
+    return err
+
+
+def phase_data_parallel(work, dev, sr_dir, raw, stsr_ckpt):
+    """Data-parallel training and serving on the card (see the module
+    docstring): 2 gloo ranks at full width against one process, the physics
+    kernels per rank, a captured epoch over a one-rank NCCL group, a
+    two-replica predictor.  Returns the tPSF launches (both ranks) and the
+    readings."""
+    d = os.path.join(work, "dp")
+    os.makedirs(d)
+    with np.load(os.path.join(sr_dir, "SRdataset_train.npz")) as z:
+        lr, hr = z["LR"], z["HR"]
+    paths = {}
+    for name, rows in (("f32", DP_BATCH * DP_F32_STEPS), ("bf16", DP_BF16_ROWS)):
+        paths[name] = os.path.join(d, f"train_{name}.npz")
+        np.savez(paths[name], LR=lr[:rows], HR=hr[:rows])
+    test = os.path.join(sr_dir, "SRdataset_test.npz")
+
+    def sr_argv(name, save_dir, *extra):
+        return ["--train_dataset_dir", paths[name], "--test_dataset_dir", test, "--save_dir",
+                save_dir, "--epochs", "1", "--inference_test", "false", *extra]
+
+    f32 = ("--compute_dtype", "float32", "--matmul_precision", "highest", "--warmup_t", "0",
+           "--deterministic", "true")
+    spec = {"dir": d, "f32_argv": sr_argv("f32", os.path.join(d, "f32"), *f32),
+            "bf16_argv": sr_argv("bf16", os.path.join(d, "bf16")),
+            "tpsf_argv": ["--dataset_dir", raw, "--save_dir", os.path.join(d, "tpsf"), "--epochs", "1",
+                          "--inference_test", "false"]}
+    spec_path = os.path.join(d, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+
+    # the same f32 steps in this process first, then the ranks
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    clock, snaps = StepClock(), StepStates()
+    try:
+        one = sr_task._cli(sr_argv("f32", os.path.join(d, "f32_one"), *f32), hooks=[clock, snaps])
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = flags
+    check(one.mesh is None and one.step == DP_F32_STEPS, "the one-process run")
+    t0 = time.perf_counter()
+    res = _run_ranks(spec_path)
+    ranks_s = time.perf_counter() - t0
+
+    states = [torch.load(os.path.join(d, f"f32_rank{r}.pt")) for r in range(DP_RANKS)]
+    for which in ("after_1", "last"):
+        for k, v in states[0][which].items():
+            check(torch.equal(v, states[1][which][k]), f"the replicas differ ({which}): {k}")
+    losses, want = res[0]["f32"]["losses"], _losses(one)[:-1]
+    np.testing.assert_allclose(losses, want, rtol=1e-4)
+    lr = one.config["lr"]
+    stats_atol = _pre_bn_bias_stats_atol(lr, DP_F32_STEPS)
+    f32_dev = {"after_1": _state_deviation(states[0]["after_1"], snaps.states[0], lr, 1,
+                                           stats_atol=1e-5),
+               "last": _state_deviation(states[0]["last"], snaps.states[-1], lr, DP_F32_STEPS,
+                                        stats_atol=stats_atol)}
+    launches = {k: sum(r["tpsf"]["launches"][k] for r in res.values()) for k in res[0]["tpsf"]["launches"]}
+    step_ms = {"gloo_f32": float(np.median(res[0]["f32"]["step_ms"][1:])),
+               "one_process_f32": float(np.median(clock.ms[1:])),
+               "gloo_bf16": res[0]["bf16"]["step_ms"]}
+    log(f"[data_parallel] {DP_RANKS} gloo ranks on {res[0]['device']} and {res[1]['device']}, full-width "
+        f"STSR at B={DP_BATCH} ({DP_BATCH // DP_RANKS} rows a rank), {ranks_s:.1f} s for the ranks: "
+        f"f32 losses {losses} vs one process {want} (rtol 1e-4); after step 1 and step "
+        f"{DP_F32_STEPS} {f32_dev} (stats atol 1e-5, then {stats_atol:.3g}); replicas equal bit "
+        f"for bit; bf16 epoch and resume "
+        f"({res[0]['bf16']['steps']} steps, mean loss {res[0]['bf16']['mean_loss']:.6g}, eval "
+        f"{res[0]['bf16']['eval']}), replicas' model and Adam state equal; tPSF epoch at B=256 "
+        f"({res[0]['tpsf']['rows_per_rank']} rows a rank, {res[0]['tpsf']['steps']} steps) launches per "
+        f"rank {[r['tpsf']['launches'] for r in res.values()]}; rank 0's seconds {res[0]['seconds']}")
+    nccl = _nccl_one_rank(work, dev, sr_dir)
+    pred_err = _two_device_predictor(dev, stsr_ckpt, sr_dir)
+    step_ms.update({k: v["step_ms"] for k, v in nccl.items() if k != "all_reduce_calls"})
+    log(f"[data_parallel] step ms (health readings, not targets): gloo ranks and one process host "
+        f"clock per eager step, synced; NCCL and no-mesh replays CUDA events: {json.dumps(step_ms)}")
+    return launches, dict(step_ms=step_ms, f32_state=f32_dev, predictor_max_abs=pred_err,
+                          all_reduce_calls=nccl["all_reduce_calls"])
 
 
 # captured-vs-eager f32 runs: the scan path's warm-up steps, the capture,
@@ -1730,7 +2085,7 @@ def _eager_step(t):
     weights = mask.reshape(t.grad_accum, -1).sum(axis=1)
     idx_t, mask_t = t._to_device(idx), t._to_device(mask)
     lr_now = t.lr
-    return lambda: t._step(idx_t, mask_t, lr_now, weights)
+    return lambda: t._step(idx_t, mask_t, lr_now, weights, weights)  # no mesh: this rank's rows are all
 
 
 def phase_train_times(trainer):
@@ -2059,11 +2414,16 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU")
     p.add_argument("--keep-checkpoints", metavar="DIR", default=None,
                    help="also write the trained STSR's and CNN's weights and the STSR test split to DIR")
+    p.add_argument("--dp-rank", metavar="SPEC", default=None,
+                   help="run one rank of the data_parallel phase (started by that phase)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    if args.dp_rank:
+        dp_rank(args.dp_rank)
+        return 0
     dev = torch.device("cuda")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)} (x{torch.cuda.device_count()})")
@@ -2084,6 +2444,8 @@ def main(argv=None):
         torch.set_float32_matmul_precision("highest")
         gen_launches, test_lr, sr_dir = phase("generation", phase_generation, work, dev, raw, ckpt)
         stsr, stsr_ckpt, stsr_sps = phase("sr", phase_sr_training, work, sr_dir)
+        dp_launches, dp_info = phase("data_parallel", phase_data_parallel, work, dev, sr_dir, raw,
+                                     stsr_ckpt)
         parity = phase("sr_parity", phase_sr_parity, work, sr_dir)
         stsr_capt, sr_capt_info = phase("sr_captured", phase_sr_captured, work, dev, sr_dir)
         remat = phase("remat", phase_remat, work, dev, sr_dir)
@@ -2123,6 +2485,7 @@ def main(argv=None):
         f"STSR step {sr_t['STSR']['step_ms']:.4f} ms (MFU {sr_t['STSR']['mfu'] * 100:.2f}%), "
         f"MTSR step {sr_t['MTSR']['step_ms']:.4f} ms (MFU {sr_t['MTSR']['mfu'] * 100:.2f}%); "
         f"card vs CPU loss rel {parity['loss_rel']:.3e}; trained serving {served}")
+    log(f"[times] data_parallel {json.dumps(dp_info)}")
     log(f"[times] captured: STSR step {capt_t['STSR']['captured']['step_ms']:.4f} ms (eager "
         f"{sr_t['STSR']['step_ms']:.4f}), stage 1 {capt_t['stage 1']['captured']['step_ms']:.4f} ms "
         f"(eager {train_t['step_ms']:.4f}), TactileSRCNN {capt_t['TactileSRCNN']['captured']['step_ms']:.4f} "
@@ -2141,7 +2504,7 @@ def main(argv=None):
                "training_precision": prec_runs["eager"][1],
                "training_precision_captured": prec_runs["captured"][1],
                "generation": gen_launches, "generation_seqs": seqs_launches, **gen_prec_launches,
-               **bench_launches}
+               **bench_launches, "data_parallel": dp_launches}
     main_t = times[MAIN_BATCH]
     record = {"kernels": [
         {

@@ -13,6 +13,7 @@ COMMANDS = [
     ("-m tactilesr_torch.scripts.bench_server", "load study of the HTTP server under concurrent clients"),
     ("-m tactilesr_torch.scripts.profile_serving", "per-op device-time table of the serving forward"),
     ("-m tactilesr_torch.scripts.profile_train", "per-op device-time table of the captured train step"),
+    ("-m tactilesr_torch.graft_entry", "data-parallel dry run of the recipes over --ranks N processes"),
     ("-m tactilesr_torch.compat.torch_convert", "port or reference .pth -> JAX .ckpt"),
     ("-m tactilesr_torch.compat.export_torch", "JAX .ckpt -> port (and reference-loadable) .pth"),
 ]

@@ -25,8 +25,12 @@ The port reads them so:
   ``tasks/sr_task.py``);
 - ``load_checkpoint_dir`` (tactileSeqs): a port ``.pth`` bundle of the
   trained STSR, whose trunk warm-starts the MTSR;
-- ``data_parallel``: the port trains on one device, so only ``auto`` and
-  the off values are accepted (``parallel/dist.py::check_single_device``).
+- ``data_parallel``: data parallelism over the process group, one process
+  per device (``parallel/mesh.py``): ``auto`` uses every rank the batch
+  size divides over (one process: no mesh), ``off`` disables, an integer
+  requests exactly N devices.  The ranks come from the launch
+  (``parallel/dist.py::init_distributed``: ``TACTILESR_*``, ``env://`` or
+  SLURM).
 """
 
 from __future__ import annotations

@@ -15,6 +15,7 @@ initializer draws from an explicit ``torch.Generator``.
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 import torch.nn as nn
@@ -37,10 +38,47 @@ class Conv(nn.Conv2d):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d (momentum 0.1, eps 1e-5) normalizing in f32."""
+    """BatchNorm2d (momentum 0.1, eps 1e-5) normalizing in f32.
+
+    ``sync`` is set by the trainer on a data-parallel mesh of more than one
+    rank (each rank a block of the global batch).  Then, in train mode, the
+    statistics are the global batch's, as JAX's ``BatchNorm`` takes them over
+    a sharded array: each rank's f32 sum, sum of squares and count go through
+    one autograd-aware ``all_reduce`` over the process group, the variance is
+    JAX's one-pass max(E[x^2] - E[x]^2, 0), and the running variance takes
+    the unbiased n/(n-1) of the global n.  ``torch.nn.SyncBatchNorm`` is not
+    used: it refuses CPU tensors and computes its variance another way.
+    Unset, the layer is ``nn.BatchNorm2d``'s own path, whatever process
+    group exists."""
+
+    sync = False
 
     def forward(self, x):
+        if self.training and self.sync:
+            return self._global_batch_forward(x)
         return super().forward(x.float()).to(x.dtype)
+
+    def _global_batch_forward(self, x):
+        from torch.distributed.nn.functional import all_reduce
+
+        xf = x.float()
+        c = xf.shape[1]
+        count = torch.full((1,), xf.numel() // c, dtype=torch.float32, device=xf.device)
+        local = torch.cat([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)), count])
+        with warnings.catch_warnings():  # deprecated in favour of a form without autograd
+            warnings.simplefilter("ignore", FutureWarning)
+            total = all_reduce(local)
+        n = total[2 * c]
+        mean = total[:c] / n
+        var = torch.clamp(total[c:2 * c] / n - mean.square(), min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var * n / torch.clamp(n - 1, min=1.0))
+            self.num_batches_tracked.add_(1)
+        shape = (1, c, 1, 1)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
 
 
 def kaiming_normal_fan_out_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

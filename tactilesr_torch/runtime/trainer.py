@@ -44,10 +44,27 @@ epoch hooks fire in this mode, as in JAX.
 ``remat`` runs the forward and loss under activation checkpointing; the
 recompute's second BatchNorm update is undone, so the running statistics
 and counters are those of one forward, as ``jax.checkpoint`` leaves them.
+
+``mesh`` (``parallel/mesh.py``) trains data-parallel, one process per
+device, as the JAX trainer does over a mesh's data axis: every rank holds
+the whole dataset, draws the same seeded epoch order and takes its
+contiguous block of rows of each (micro-)batch.  Each rank's loss is a
+mean over its valid rows; its gradients enter the sum weighted by its
+valid-row count over the global batch's (known on the host, or from the
+mask on the device), so the summed gradient is the global batch's, padded
+final batches included, however their valid rows fall on the ranks.  One
+``all_reduce`` of one flat buffer per optimizer step sums the gradients
+and the loss values.  On a mesh of more than one rank the trainer sets
+``sync`` on the model's BatchNorm layers, which then take their statistics
+over the global batch (``models/layers.py``).  Every rank steps the same optimizer on the same
+sums, so the replicas stay equal.  Under NCCL the captured step records
+the collective and replays it; gloo's collectives cannot be captured, so
+``scan_epochs`` on CUDA under gloo raises.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import math
 import os
@@ -59,8 +76,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.layers import BatchNorm
 from ..ops.graph import CapturedGraph
 from ..parallel.dist import get_rank, get_world_size, is_main_process
+from ..parallel.mesh import shard_batch_size
 from .checkpoint import CheckpointManager, load_checkpoint_file, load_state_dict_strict_false
 from .device import resolve_device
 from .history import MetricStorage
@@ -136,6 +155,7 @@ class Trainer:
         remat: bool = False,
         grad_accum: int = 1,
         device="cuda",
+        mesh=None,
     ):
         assert (max_epochs > 0) ^ (max_iters > 0), "specify either max_epochs or max_iters"
         assert not (scan_epochs and max_iters > 0), "scan_epochs requires epoch-based training"
@@ -144,8 +164,20 @@ class Trainer:
             f"batch_size ({batch_size}) must divide into grad_accum "
             f"({grad_accum}) micro-batches"
         )
+        if mesh is not None:
+            # under accumulation the micro-batch is what lands on the ranks
+            shard_batch_size(batch_size // grad_accum, mesh)
+            if not (torch.distributed.is_initialized() and not mesh.devices
+                    and mesh.size == get_world_size()):
+                raise ValueError(
+                    f"a training mesh spans the process group (parallel.init_distributed), one "
+                    f"device per process: got {mesh} in a world of {get_world_size()}")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        for m in model.modules():  # global-batch statistics across the ranks
+            if isinstance(m, BatchNorm):
+                m.sync = mesh is not None and mesh.size > 1
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
         self.work_dir = work_dir
@@ -217,6 +249,23 @@ class Trainer:
     def log(self, *args, **kwargs) -> None:
         self.metric_storage.update(*args, **kwargs)
 
+    def state_digest(self) -> str:
+        """One sha256 of the model's state and the optimizer's: equal on
+        every replica of a data-parallel run."""
+        h = hashlib.sha256()
+        tensors = list(self.model.state_dict().items())
+        for i, st in sorted(self.optimizer.state_dict()["state"].items()):
+            tensors += [(f"optimizer.{i}.{k}", torch.as_tensor(v)) for k, v in sorted(st.items())]
+        for k, v in tensors:
+            h.update(k.encode())
+            h.update(v.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+        return h.hexdigest()
+
+    @property
+    def _num_devices(self) -> int:
+        """The data-axis size: what a checkpoint records and a resume asserts."""
+        return 1 if self.mesh is None else self.mesh.size
+
     def model_apply(self, *args, **kwargs):
         """Eval-mode forward of the current model (see ``eval_forward``)."""
         return eval_forward(self.model, *args, **kwargs)
@@ -280,10 +329,11 @@ class Trainer:
                 out += [m.running_mean, m.running_var, m.num_batches_tracked]
         return out
 
-    def _loss_and_grads(self, batch: Dict[str, torch.Tensor], scale: float = 1.0, params=None):
+    def _loss_and_grads(self, batch: Dict[str, torch.Tensor], scale=None, params=None):
         """Forward, loss and backward of one (micro-)batch -> (detached
-        loss_dict, grads).  With ``params`` None, ``loss * scale`` is
-        backpropagated into ``.grad`` (grads None); else the loss's
+        loss_dict, grads).  With ``params`` None, ``loss`` (times ``scale``,
+        a float or a device scalar, where given) is backpropagated into
+        ``.grad`` (grads None); else the loss's
         gradients for ``params`` are returned (None for an unused one).
 
         Under ``remat`` the forward and loss run in
@@ -300,7 +350,7 @@ class Trainer:
             loss, loss_dict = self.train_cal_loss(batch)
         grads = None
         if params is None:
-            (loss if scale == 1.0 else loss * scale).backward()
+            (loss if scale is None else loss * scale).backward()
         else:
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         if self.remat:
@@ -308,68 +358,102 @@ class Trainer:
                 b.copy_(v)
         return {k: v.detach() for k, v in loss_dict.items()}, grads
 
+    def _shard(self, rows):
+        """This rank's contiguous block of the last axis of ``rows`` (a
+        (micro-)batch's indices or mask, tensor or array); all of it without
+        a mesh."""
+        if self.mesh is None:
+            return rows
+        b = rows.shape[-1] // self.mesh.size
+        return rows[..., self.mesh.rank * b:(self.mesh.rank + 1) * b]
+
+    def _all_reduce(self, loss_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Sum every rank's gradients (in ``.grad``) and weighted loss values
+        with one ``all_reduce`` of one flat f32 buffer; returns the summed
+        losses."""
+        grads = [p.grad for p in self.optimizer.params if p.grad is not None]
+        names = list(loss_dict)
+        flat = torch.cat([g.reshape(-1).float() for g in grads]
+                         + [loss_dict[n].float().reshape(1) for n in names])
+        torch.distributed.all_reduce(flat)
+        off = 0
+        for g in grads:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        return {n: flat[off + i] for i, n in enumerate(names)}
+
     def _step(self, idx: torch.Tensor, mask: torch.Tensor, lr: float,
-              weights: np.ndarray) -> Dict[str, torch.Tensor]:
+              weights: np.ndarray, local: np.ndarray) -> Dict[str, torch.Tensor]:
         """One optimizer step, enqueued without a host sync.
 
-        With ``grad_accum`` K > 1 the batch is K micro-batches whose
-        gradients are weighted by their valid-row counts (``weights``, known
-        on the host from the mask), so for a mean-over-valid-rows loss the
-        accumulated gradient equals the full-batch one, padded final batches
-        included; an all-padded micro-batch is skipped and contributes
-        nothing (nor updates any BatchNorm statistics)."""
+        With ``grad_accum`` K > 1 or a mesh, the batch is K micro-batches
+        (each split over the ranks) whose gradients are weighted by the
+        valid-row counts of this rank's block (``local``) over the whole
+        batch's (``weights`` per micro-batch; both known on the host from
+        the mask), so for a mean-over-valid-rows loss the accumulated
+        gradient, summed over the ranks, equals the full-batch one, padded
+        final batches included; an all-padded micro-batch is skipped by
+        every rank and contributes nothing (nor updates any BatchNorm
+        statistics)."""
         self.optimizer.zero_grad()
-        if self.grad_accum == 1:
+        if self.grad_accum == 1 and self.mesh is None:
             loss_dict, _ = self._loss_and_grads(self._gather(idx, mask))
         else:
             wtot = float(weights.sum())
-            idx_m = idx.view(self.grad_accum, -1)
-            mask_m = mask.view(self.grad_accum, -1)
+            idx_m = self._shard(idx.view(self.grad_accum, -1))
+            mask_m = self._shard(mask.view(self.grad_accum, -1))
             loss_dict = {}
-            for k, w in enumerate(weights):
+            for k, (w, wl) in enumerate(zip(weights, local)):
                 if w == 0:
                     continue
-                scale = float(w) / wtot
+                scale = float(wl) / wtot
                 ld, _ = self._loss_and_grads(self._gather(idx_m[k], mask_m[k]), scale)
                 for name, v in ld.items():
                     loss_dict[name] = loss_dict.get(name, 0.0) + v * scale
+            if self.mesh is not None:
+                loss_dict = self._all_reduce(loss_dict)
         self.optimizer.step(lr)
         self.step += 1
         return loss_dict
 
     def _accumulate_on_device(self, idx: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """``grad_accum`` K > 1 with the weights computed from the mask on
-        the device, as the JAX step's inner scan does: a graph cannot skip
-        an all-padded micro-batch on the host, so it selects instead.  Each
-        micro-batch's gradients enter the sum as ``where(w > 0, w g, 0)``
-        (a loss may be NaN on padding, and NaN * 0 stays NaN), and BN's
-        state goes back to its value before the micro-batch where w = 0.
-        The sum over w is then divided out, and ``.grad`` set from it."""
+        """``grad_accum`` K > 1 micro-batches with the weights computed from
+        the mask on the device, as the JAX step's inner scan does: a graph
+        cannot skip an all-padded micro-batch on the host, so it selects
+        instead.  Each micro-batch's gradients enter
+        the sum as ``where(w > 0, w g, 0)`` with w the valid rows of this
+        rank's block (a loss may be NaN on padding, and NaN * 0 stays NaN),
+        and BN's state goes back to its value before the micro-batch where
+        the whole micro-batch is padding.  The sum over the batch's valid
+        rows is then divided out, ``.grad`` set from it, and the ranks'
+        shares summed."""
         K = self.grad_accum
-        idx_m, mask_m = idx.view(K, -1), mask.view(K, -1)
+        idx_m, mask_m = self._shard(idx.view(K, -1)), self._shard(mask.view(K, -1))
+        keep_m = mask.view(K, -1).sum(dim=1) > 0
         w = mask_m.sum(dim=1)
-        wtot = w.sum()
+        wtot = mask.sum()
         params = self.optimizer.params
         gsum: List[Optional[torch.Tensor]] = [None] * len(params)
         bn = self._bn_state()
         loss_dict: Dict[str, torch.Tensor] = {}
         for k in range(K):
-            keep = w[k] > 0
+            keep, own = keep_m[k], w[k] > 0
             before = [b.clone() for b in bn]
             ld, grads = self._loss_and_grads(self._gather(idx_m[k], mask_m[k]), params=params)
             for b, old in zip(bn, before):
                 b.copy_(torch.where(keep, b, old))
             for i, g in enumerate(grads):
                 if g is not None:
-                    g = torch.where(keep, w[k] * g.float(), 0.0)
+                    g = torch.where(own, w[k] * g.float(), 0.0)
                     gsum[i] = g if gsum[i] is None else gsum[i].add_(g)
             for name, v in ld.items():
-                v = torch.where(keep, w[k] * v.float(), 0.0)
+                v = torch.where(own, w[k] * v.float(), 0.0)
                 loss_dict[name] = v if name not in loss_dict else loss_dict[name] + v
         for p, g in zip(params, gsum):
             if g is not None:
                 p.grad = (g / wtot).to(p.dtype)
-        return {name: v / wtot for name, v in loss_dict.items()}
+        loss_dict = {name: v / wtot for name, v in loss_dict.items()}
+        return loss_dict if self.mesh is None else self._all_reduce(loss_dict)
 
     def _scan_step(self) -> None:
         """One optimizer step of the scan path, all on the device: the row
@@ -380,10 +464,15 @@ class Trainer:
         idx = s.idx.index_select(0, s.k)[0]
         mask = s.mask.index_select(0, s.k)[0]
         self.optimizer.zero_grad()
-        if self.grad_accum == 1:
-            loss_dict, _ = self._loss_and_grads(self._gather(idx, mask))
-        else:
+        if self.grad_accum > 1:
             loss_dict = self._accumulate_on_device(idx, mask)
+        elif self.mesh is None:
+            loss_dict, _ = self._loss_and_grads(self._gather(idx, mask))
+        else:  # this rank's share of the global mean; masked_mse gives 0 on no valid rows
+            local = self._shard(mask)
+            scale = local.sum() / mask.sum()
+            ld, _ = self._loss_and_grads(self._gather(self._shard(idx), local), scale)
+            loss_dict = self._all_reduce({name: v * scale for name, v in ld.items()})
         self.optimizer.step(s.lr.index_select(0, s.k)[0])
         for name, v in loss_dict.items():
             if name not in s.losses:
@@ -469,11 +558,12 @@ class Trainer:
     def train_one_iter(self, idx: np.ndarray, mask: np.ndarray) -> None:
         iter_start = time.perf_counter()
         weights = mask.reshape(self.grad_accum, -1).sum(axis=1)
+        local = self._shard(mask.reshape(self.grad_accum, -1)).sum(axis=1)
         idx_t = self._to_device(idx)
         mask_t = self._to_device(mask)
         data_time = time.perf_counter() - iter_start
         lr = float(self.lr)
-        loss_dict = self._step(idx_t, mask_t, lr, weights)
+        loss_dict = self._step(idx_t, mask_t, lr, weights, local)
         iter_time = time.perf_counter() - iter_start
         self._pending.append((self.cur_iter, loss_dict, data_time, iter_time, lr))
 
@@ -534,6 +624,14 @@ class Trainer:
                 self._call_hooks("after_epoch")
         self.flush_metrics()
         self._call_hooks("after_train")
+        self._sync_ranks()
+
+    def _sync_ranks(self) -> None:
+        """Under a mesh, wait until every rank has finished training, so
+        that rank 0's last checkpoint is on disk when any rank returns (a
+        resume that follows reads it)."""
+        if self.mesh is not None:
+            torch.distributed.barrier()
 
     def _train_scan(self) -> None:
         """The epoch loop of the scan path (the JAX trainer's epoch-scan
@@ -543,6 +641,12 @@ class Trainer:
         logger.info("Start training (epoch-scan mode) from iteration %d", self.start_iter)
         assert self.start_iter % self.epoch_len == 0, (
             "epoch-scan resume must land on an epoch boundary")
+        if self.device.type == "cuda" and self.mesh is not None \
+                and torch.distributed.get_backend() != "nccl":
+            raise RuntimeError(
+                f"scan_epochs on CUDA captures the train step in a CUDA graph, and the "
+                f"{torch.distributed.get_backend()} backend's all_reduce cannot be captured; "
+                "train data-parallel on CUDA under nccl, or with scan_epochs false")
         if self.device.type == "cuda" and not self.optimizer.capturable:
             self.optimizer.make_capturable()
         self._call_hooks("before_train")
@@ -553,6 +657,7 @@ class Trainer:
             self.cur_iter = (epoch + 1) * self.epoch_len - 1
             self._call_hooks("after_epoch")
         self._call_hooks("after_train")
+        self._sync_ranks()
 
     def _epoch_batches(self):
         from ..data.loader import epoch_batches
@@ -563,7 +668,7 @@ class Trainer:
     def save_checkpoint(self, file_name: str) -> None:
         self.flush_metrics()
         bundle: Dict[str, Any] = {
-            "num_devices": get_world_size(),  # one device per process
+            "num_devices": self._num_devices,
             "num_processes": get_world_size(),
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
@@ -592,7 +697,7 @@ class Trainer:
         logger.info("Loading checkpoint from %s ...", path)
         bundle = load_checkpoint_file(path)
 
-        n_dev, ckpt_dev = get_world_size(), bundle["num_devices"]
+        n_dev, ckpt_dev = self._num_devices, bundle["num_devices"]
         assert n_dev == ckpt_dev, (
             f"checkpoint was trained with {ckpt_dev} devices, but {n_dev} are present")
 

@@ -54,6 +54,7 @@ from typing import Optional
 import numpy as np
 
 from .models.inference import BRANCH_MODES
+from .parallel.mesh import local_devices, resolve_mesh
 from .serving import COMPUTE_DTYPES, MODEL_ARCHS, SRPredictor
 
 __all__ = [
@@ -591,6 +592,10 @@ def _cli(argv=None):
         help="MTSR branch layout (models/inference.py rewrite 4)",
     )
     p.add_argument("--device", default="cuda")
+    p.add_argument(
+        "--data-parallel", default="off",
+        help="shard serving batches over this process's devices: off|auto|N",
+    )
     args = p.parse_args(argv)
     srv = create_server(
         args.checkpoint,
@@ -609,6 +614,7 @@ def _cli(argv=None):
         branch_mode=args.branch_mode,
         device=args.device,
         allow_pickle=args.allow_pickle,
+        mesh=resolve_mesh(args.data_parallel, devices=local_devices(args.device)),
     )
     print(json.dumps({"serving": f"http://{srv.server_address[0]}:{srv.server_address[1]}"}), flush=True)
     try:

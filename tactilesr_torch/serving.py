@@ -18,6 +18,14 @@ which the H100 found no slower than ``per_seq`` at every default bucket
 :func:`export_program` writes the forward served at one bucket as a
 ``torch.export`` program with the weights in it.
 
+``mesh`` (an in-process ``parallel.Mesh`` over devices, or ``--data-parallel
+auto|N|off`` over the local CUDA devices) serves data-parallel, as JAX
+shards a batch over its mesh: the buckets round up to multiples of the data
+axis, the folded weights are replicated once on each device, every padded
+bucket splits into equal contiguous shards, each enqueued on its device,
+and the shards' outputs are concatenated.  A hot swap replaces every
+replica from one checkpoint.
+
     python -m tactilesr_torch.serving --checkpoint x.pth --input frames.npz --output sr.npz
     python -m tactilesr_torch.serving --checkpoint x.pth --input test.npz --evaluate
 """
@@ -39,6 +47,7 @@ from .models.inference import (
     tactile_sr_infer,
 )
 from .models.tactile_sr import TactileSR, TactileSRCNN
+from .parallel.mesh import local_devices, resolve_mesh
 from .runtime.checkpoint import load_checkpoint_file
 from .runtime.device import resolve_device
 
@@ -59,7 +68,8 @@ def _spec(weights) -> dict:
 
 
 class SRPredictor:
-    """TactileSR or TactileSRCNN inference with batch bucketing on one device."""
+    """TactileSR or TactileSRCNN inference with batch bucketing on one
+    device, or on each device of ``mesh`` (which then replaces ``device``)."""
 
     def __init__(
         self,
@@ -76,6 +86,7 @@ class SRPredictor:
         model_arch: str = "TactileSR",
         branch_mode: str = "auto",
         allow_pickle: bool = False,
+        mesh=None,
     ):
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {compute_dtype!r}")
@@ -84,7 +95,20 @@ class SRPredictor:
         if model_arch == "TactileSRCNN" and seqs_cnt != 1:
             raise ValueError(f"TactileSRCNN is single-frame; got seqs_cnt={seqs_cnt}")
         self.model_arch = model_arch
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if not mesh.devices:
+                raise ValueError("serving takes a mesh over this process's devices "
+                                 "(parallel.make_mesh([...]))")
+            self.devices = tuple(resolve_device(d) for d in mesh.devices)
+            adj = tuple(sorted({-(-b // mesh.size) * mesh.size for b in buckets}))
+            if adj != tuple(sorted(buckets)):
+                logger.info("buckets %s rounded to data-axis multiples: %s",
+                            tuple(sorted(buckets)), adj)
+            buckets = adj
+        else:
+            self.devices = (resolve_device(device),)
+        self.device = self.devices[0]
         self.dtype = COMPUTE_DTYPES[compute_dtype]
         self.in_channels = seqs_cnt * axis_cnt
         self.buckets = tuple(sorted(buckets))
@@ -94,23 +118,29 @@ class SRPredictor:
         self._force_layers = force_layers
         self.branch_mode = resolve_branch_mode(branch_mode, seqs_cnt)
         self.allow_pickle = allow_pickle
-        self._weights = None
+        self._replicas = None
         self._load_weights(checkpoint_path)
         logger.info("SRPredictor ready: %s (buckets %s, fused=%s, branch_mode %s, %s on %s)",
-                    checkpoint_path, self.buckets, fused, self.branch_mode, compute_dtype, self.device)
+                    checkpoint_path, self.buckets, fused, self.branch_mode, compute_dtype,
+                    ", ".join(str(d) for d in self.devices))
 
-    def _build(self, state_dict: dict):
+    @property
+    def _weights(self):
+        """The serving state on the first device."""
+        return self._replicas[0]
+
+    def _build(self, state_dict: dict, device: torch.device):
         """The serving state for one checkpoint: folded tensors (fused) or
-        an eval-mode model of ``model_arch`` (unfused), on the device."""
+        an eval-mode model of ``model_arch`` (unfused), on ``device``."""
         cnn = self.model_arch == "TactileSRCNN"
         if self.fused and cnn:
             return fold_inference_params_cnn(state_dict, msrb_cnt=self._pattern_layers,
-                                             dtype=self.dtype, device=self.device)
+                                             dtype=self.dtype, device=device)
         if self.fused:
             return fold_inference_params(
                 state_dict, seqs_cnt=self._arch["seqs_cnt"],
                 pattern_layers=self._pattern_layers, force_layers=self._force_layers,
-                dtype=self.dtype, device=self.device, branch_mode=self.branch_mode,
+                dtype=self.dtype, device=device, branch_mode=self.branch_mode,
             )
         if cnn:
             model = TactileSRCNN(scale_factor=self._arch["scale_factor"], msrb_cnt=self._pattern_layers,
@@ -124,29 +154,30 @@ class SRPredictor:
             model.load_state_dict(state_dict, strict=True)
         except RuntimeError as e:  # missing, unexpected or mis-shaped keys
             raise KeyError(str(e)) from e
-        return model.to(self.device).eval().requires_grad_(False)
+        return model.to(device).eval().requires_grad_(False)
 
     def _load_weights(self, checkpoint_path: str) -> None:
-        """Load (or hot-swap) weights.  All work happens on locals and the
-        weights are rebound only after every check passed, so a refused
-        checkpoint leaves the previous weights serving."""
+        """Load (or hot-swap) weights, one replica a device from one read of
+        the checkpoint.  All work happens on locals and the replicas are
+        rebound only after every check passed, so a refused checkpoint
+        leaves the previous weights serving."""
         state_dict = load_checkpoint_file(checkpoint_path, allow_pickle=self.allow_pickle)["model"]
         try:
-            new = self._build(state_dict)
+            new = tuple(self._build(state_dict, d) for d in self.devices)
         except KeyError as e:
             raise KeyError(
                 f"checkpoint {checkpoint_path!r} does not fit the serving architecture "
                 f"(model_arch={self.model_arch}, seqs_cnt={self._arch['seqs_cnt']}, "
                 f"pattern_layers={self._pattern_layers}, force_layers={self._force_layers}): {e}"
             ) from e
-        spec = _spec(new)
-        if self._weights is not None and spec != self._spec:
+        spec = _spec(new[0])
+        if self._replicas is not None and spec != self._spec:
             raise ValueError(
                 f"checkpoint {checkpoint_path!r} does not match the serving architecture "
                 "(different parameter shapes); previous weights keep serving"
             )
         self._spec = spec
-        self._weights = new  # one rebind: predict() snapshots it per request
+        self._replicas = new  # one rebind: predict() snapshots it per request
 
     def reload_checkpoint(self, checkpoint_path: str) -> None:
         """Hot-swap weights on a live predictor; a mismatched checkpoint
@@ -167,12 +198,14 @@ class SRPredictor:
         return w(x)
 
     def warmup(self) -> None:
-        """Run every bucket once (cuDNN picks its algorithms on first use)."""
-        w = self._weights
-        for b in self.buckets:
-            self._forward(w, torch.zeros((b, self.in_channels, 4, 4), device=self.device))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Run every bucket once on every replica (cuDNN picks its algorithms
+        on first use)."""
+        for w, dev in zip(self._replicas, self.devices):
+            for b in self.buckets:
+                self._forward(w, torch.zeros((b // len(self.devices), self.in_channels, 4, 4),
+                                             device=dev))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -186,7 +219,7 @@ class SRPredictor:
         if lr.ndim != 4 or lr.shape[1:] != (self.in_channels, 4, 4):
             raise ValueError(f"expected (N, {self.in_channels}, 4, 4), got {lr.shape}")
         n = lr.shape[0]
-        w = self._weights  # one snapshot for the whole request
+        replicas = self._replicas  # one snapshot for the whole request
         outs = []
         i = 0
         while i < n:
@@ -195,8 +228,11 @@ class SRPredictor:
             take = chunk.shape[0]
             if take < b:
                 chunk = np.concatenate([chunk, np.zeros((b - take,) + chunk.shape[1:], np.float32)])
-            x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
-            outs.append(self._forward(w, x)[:take].cpu().numpy())
+            # one equal contiguous shard a device, all enqueued before any is read
+            shards = np.split(np.ascontiguousarray(chunk), len(replicas))
+            ys = [self._forward(w, torch.from_numpy(x).to(dev))
+                  for w, x, dev in zip(replicas, shards, self.devices)]
+            outs.append(torch.cat([y.cpu() for y in ys])[:take].numpy())
             i += take
         if not outs:
             hw = 4 * self._arch["scale_factor"]
@@ -287,6 +323,9 @@ def _cli(argv=None):
     p.add_argument("--hr-scale-num", type=float, default=10.0)
     p.add_argument("--max-value", type=float, default=250.0)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--data-parallel", default="off",
+                   help="shard serving batches over this process's devices: off|auto|N "
+                        "(the training configs' knob)")
     args = p.parse_args(argv)
 
     with np.load(args.input) as z:
@@ -297,6 +336,7 @@ def _cli(argv=None):
         pattern_layers=args.pattern_layers, force_layers=args.force_layers,
         compute_dtype=args.compute_dtype, fused=not args.no_fused, device=args.device,
         model_arch=args.model_arch, branch_mode=args.branch_mode, allow_pickle=args.allow_pickle,
+        mesh=resolve_mesh(args.data_parallel, devices=local_devices(args.device)),
     )
     pred.warmup()
     t0 = time.perf_counter()
@@ -307,7 +347,7 @@ def _cli(argv=None):
         "seconds": dt,
         "frames_per_sec": lr.shape[0] / dt if dt > 0 else None,
         "output_shape": list(sr.shape),
-        "device": str(pred.device),
+        "device": ", ".join(str(d) for d in pred.devices),
         "branch_mode": pred.branch_mode,
     }
     if hr is not None:

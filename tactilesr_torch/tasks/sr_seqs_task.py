@@ -11,10 +11,18 @@ pattern and force trunks from the STSR ``.pth`` at ``load_checkpoint_dir``
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 from ..runtime.hooks import HookBase
 from . import sr_task
+
+
+def main(config=None, mesh=None, max_epochs: Optional[int] = None, auto_resume: bool = False,
+         hooks: Sequence[HookBase] = ()) -> sr_task.SRTrainer:
+    """``sr_task.main(config, seqs=True, ...)``: the MTSR recipe, over
+    ``mesh`` or the config's ``data_parallel``."""
+    return sr_task.main(config, seqs=True, mesh=mesh, max_epochs=max_epochs,
+                        auto_resume=auto_resume, hooks=hooks)
 
 
 def _cli(argv=None, hooks: Sequence[HookBase] = ()) -> sr_task.SRTrainer:

@@ -39,6 +39,7 @@ from ..models.layers import non_negative_kaiming_fan_out_
 from ..models.tactile_sr import TactileSR, TactileSRCNN
 from ..ops.resize import bilinear_resize_matrix
 from ..parallel import dist
+from ..parallel.mesh import resolve_mesh_from_config
 from ..runtime.checkpoint import load_checkpoint_file
 from ..runtime.device import resolve_device
 from ..runtime.hooks import EvalHook, HookBase
@@ -130,26 +131,47 @@ def build_eval_fn(trainer: SRTrainer, test_arrays: Dict[str, np.ndarray]):
     batch over its valid rows, then each batch mean averaged over batches.
     Eval mode makes every row independent of its batch, so the set runs in
     chunks of ``EVAL_CHUNK`` rows and is grouped by batch afterwards; the
-    final partial batch averages over its valid rows only."""
+    final partial batch averages over its valid rows only.
+
+    Under the trainer's mesh each rank evaluates its contiguous block of
+    rows of every test batch (JAX shards each batch over the data axis) and
+    the per-sample rows are all-gathered, as one ``all_reduce`` of a buffer
+    in which each rank fills its own rows, before the grouping: the metrics
+    are the same on every rank.  A test batch that does not divide over the
+    data axis is evaluated whole on every rank, with JAX's warning."""
     config = trainer.config
     bs = config["test_batch_size"]
     max_value = float(config["sensorMaxVaule_factor"])
     c = config["seqsCnt"] * config["axisCnt"]
-    lr = torch.from_numpy(np.ascontiguousarray(test_arrays["LR"][:, :c])).to(trainer.device)
-    hr = torch.from_numpy(prepare_sr_labels(test_arrays["HR"], config)).to(trainer.device)
-    n = lr.shape[0]
+    n = test_arrays["LR"].shape[0]
+    rows = np.arange(n)
+    mesh = trainer.mesh
+    if mesh is not None:
+        if bs % mesh.size == 0:
+            rows = rows[(rows % bs) // (bs // mesh.size) == mesh.rank]
+        else:
+            logger.warning("test_batch_size %d not divisible by the %d-device data axis; "
+                           "evaluation runs unsharded (replicated over the mesh)", bs, mesh.size)
+            mesh = None
+    lr = torch.from_numpy(np.ascontiguousarray(test_arrays["LR"][rows, :c])).to(trainer.device)
+    hr = torch.from_numpy(prepare_sr_labels(test_arrays["HR"][rows], config)).to(trainer.device)
+    own = torch.from_numpy(rows).to(trainer.device)
     nb = -(-n // bs)
     batch_of = torch.arange(n, device=trainer.device) // bs
     counts = torch.bincount(batch_of, minlength=nb).float()
 
     def eval_func() -> Dict[str, float]:
         out = torch.cat([trainer.model_apply(lr[i:i + EVAL_CHUNK])
-                         for i in range(0, n, EVAL_CHUNK)])
+                         for i in range(0, lr.shape[0], EVAL_CHUNK)])
         per_sample = torch.stack([
             ((out - hr) ** 2).mean(dim=(1, 2, 3)),
             batched_psnr(out[:, 0], hr[:, 0], max_value),
             batched_ssim(out[:, 0], hr[:, 0]),
-        ], dim=1)  # (n, 3)
+        ], dim=1)  # (rows, 3)
+        if mesh is not None:
+            every = torch.zeros(n, 3, device=out.device).index_copy_(0, own, per_sample)
+            torch.distributed.all_reduce(every)
+            per_sample = every
         sums = torch.zeros(nb, 3, device=out.device).index_add_(0, batch_of, per_sample)
         mse, psnr_v, ssim_v = (sums / counts[:, None]).mean(dim=0).cpu().tolist()
         logger.info("==> [test] loss: %.4f, SSIM: %.4f, PSNR: %.4f", mse, ssim_v, psnr_v)
@@ -358,19 +380,23 @@ def transfer_trunk_params(seqs_state: dict, single_bundle: dict) -> dict:
     return out
 
 
-def main(config=None, seqs: bool = False, max_epochs: Optional[int] = None,
+def main(config=None, seqs: bool = False, mesh=None, max_epochs: Optional[int] = None,
          auto_resume: bool = False, hooks: Sequence[HookBase] = ()) -> SRTrainer:
     """Train the SR network of ``config`` (STSR, or TactileSRCNN with
     ``model_arch``; ``seqs=True`` trains the MTSR on the SeqsDataset with
-    the trunk transfer).  ``auto_resume`` continues
+    the trunk transfer).  The process joins its launch's process group
+    (``parallel.init_distributed``) and, with ``mesh`` None, trains over
+    the mesh of the config's ``data_parallel``.  ``auto_resume`` continues
     from ``latest.pth`` in the work dir; ``hooks`` are registered beside the
     recipe's own."""
     config = dict(config or (tactileSeqs_config if seqs else tactileSR_config))
-    dist.check_single_device(config.get("data_parallel", "auto"))
-    setup_logger("tactilesr_torch")
+    dist.init_distributed(device=config.get("device", "cuda"))
+    setup_logger("tactilesr_torch", process_index=dist.get_rank())
     dev = resolve_device(config.get("device", "cuda"))
     set_random_seed(config["random_seed"], config["deterministic"])
     apply_matmul_precision(config)
+    if mesh is None:
+        mesh = resolve_mesh_from_config(config)
     model = build_model(config)
 
     ds_cls = TactileSRDatasetSeq if seqs else TactileSRDataset
@@ -418,6 +444,7 @@ def main(config=None, seqs: bool = False, max_epochs: Optional[int] = None,
         remat=bool(config.get("remat", False)),
         grad_accum=int(config.get("grad_accum", 1)),
         device=dev,
+        mesh=mesh,
     )
     test_arrays = {"LR": lr_test, "HR": hr_test}
     trainer.register_hooks([EvalHook(1, build_eval_fn(trainer, test_arrays))])

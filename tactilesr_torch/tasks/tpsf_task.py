@@ -32,7 +32,8 @@ from ..data.datasets import SingleTapSeqsDataset, TPSFNetDataset
 from ..metrics import batched_ssim
 from ..models.tpsf_net import TPSFNet
 from ..ops.psf import resolve_use_kernel
-from ..parallel.dist import check_single_device, is_main_process
+from ..parallel.dist import get_rank, init_distributed, is_main_process
+from ..parallel.mesh import resolve_mesh_from_config
 from ..runtime.checkpoint import load_checkpoint_file
 from ..runtime.device import resolve_device
 from ..runtime.hooks import EvalHook, HookBase
@@ -175,14 +176,21 @@ def _seq_arrays(config):
     return out
 
 
-def main(config=None, max_epochs: Optional[int] = None, hooks: Sequence[HookBase] = ()) -> TPSFTrainer:
-    """Train from ``config``; ``hooks`` are registered beside the recipe's own."""
+def main(config=None, mesh=None, max_epochs: Optional[int] = None,
+         hooks: Sequence[HookBase] = ()) -> TPSFTrainer:
+    """Train from ``config``; ``hooks`` are registered beside the recipe's own.
+    The process joins its launch's process group and, with ``mesh`` None,
+    trains over the mesh of the config's ``data_parallel``: each rank runs
+    the physics (its forward kernel and, once a step, its backward kernel)
+    on its own rows, the counterpart of JAX's ``shard_map``."""
     config = dict(config or tPSFNet_config)
-    check_single_device(config.get("data_parallel", "auto"))
-    setup_logger("tactilesr_torch")
+    init_distributed(device=config.get("device", "cuda"))
+    setup_logger("tactilesr_torch", process_index=get_rank())
     dev = resolve_device(config.get("device", "cuda"))
     set_random_seed(config["random_seed"], config["deterministic"])
     apply_matmul_precision(config)
+    if mesh is None:
+        mesh = resolve_mesh_from_config(config)
 
     train_ds = TPSFNetDataset(config["dataset_dir"], sample_cnt=config["sample_cnt"],
                               is_sample_idx=list(range(5, 81)), is_aug_data=config["is_aug_data"])
@@ -216,6 +224,7 @@ def main(config=None, max_epochs: Optional[int] = None, hooks: Sequence[HookBase
         remat=bool(config.get("remat", False)),
         grad_accum=int(config.get("grad_accum", 1)),
         device=dev,
+        mesh=mesh,
     )
     trainer.register_hooks([EvalHook(1, build_eval_fn(trainer, {"LR": lr_test, "depth": depth_test}))])
 

@@ -258,6 +258,7 @@ def test_command_index_lists_every_entry():
         "tactilesr_torch.server", "tactilesr_torch.bench", "tactilesr_torch.scripts.bench_server",
         "tactilesr_torch.scripts.profile_serving", "tactilesr_torch.scripts.profile_train",
         "tactilesr_torch.compat.torch_convert", "tactilesr_torch.compat.export_torch",
+        "tactilesr_torch.graft_entry",
     }
     for m in mods:
         assert f"python -m {m}" in proc.stdout and importlib.util.find_spec(m) is not None, m

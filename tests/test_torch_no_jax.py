@@ -62,6 +62,7 @@ def test_port_module_list_covers_the_training_runtime():
     them) are in the list the import check walks."""
     mods = set(_modules())
     for m in ("config.default", "config.parser", "data.loader", "metrics", "parallel.dist",
+              "parallel.mesh",
               "runtime.checkpoint", "runtime.history", "runtime.hooks.builtin",
               "runtime.hooks.hookbase", "runtime.hooks.profiler", "runtime.logger", "runtime.misc",
               "runtime.optim", "runtime.schedule", "runtime.trainer", "tasks.tpsf_task", "ops.graph",

@@ -7,8 +7,7 @@ requests go through real HTTP via urllib, so the full handler/batcher/
 predictor stack is exercised.  Bundles are ``make_sr_checkpoint`` JAX
 variables written in the port's ``.pth`` layout, so ``/predict`` is also
 held against the JAX ``SRPredictor`` on the same weights (f32, rtol 1e-4,
-atol 1e-5).  ``test_server_over_device_mesh`` has no counterpart yet: the
-port serves on one device until data-parallel serving is ported.
+atol 1e-5).
 """
 
 import io
@@ -25,6 +24,7 @@ from conftest import make_sr_checkpoint
 from tactilesr_tpu.runtime.checkpoint import load_checkpoint_file as jax_load
 from tactilesr_tpu.serving import SRPredictor as JaxSRPredictor
 from tactilesr_torch.compat.from_jax import tactile_sr_state_dict
+from tactilesr_torch.parallel import make_mesh
 from tactilesr_torch.runtime.checkpoint import save_checkpoint_file
 from tactilesr_torch.server import MicroBatcher, create_server
 from tactilesr_torch.serving import SRPredictor
@@ -312,6 +312,31 @@ def test_stats_latency_percentiles(server, rng):
     lat = s["latency_ms"]
     assert lat["window"] >= 3
     assert 0 < lat["p50"] <= lat["p95"] <= lat["p99"]
+
+
+def test_server_over_device_mesh(tmp_path, rng):
+    """The endpoint composes with data-parallel serving: a server whose
+    predictor shards batches over a two-device mesh (both the CPU here)
+    returns the maps of the unmeshed predictor (the --data-parallel path)."""
+    ckpt = _make_ckpt(tmp_path)
+    srv = create_server(
+        ckpt, linger_ms=2.0, warmup=False, mesh=make_mesh(["cpu", "cpu"]),
+        scale_factor=4, pattern_layers=1, force_layers=1,
+        compute_dtype="float32", buckets=(8,), device="cpu",
+    )
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        base = "http://%s:%d" % srv.server_address
+        lr = (rng.random((5, 3, 4, 4)) * 4).astype(np.float32)
+        _, body, _ = _post(base + "/predict", _npz(LR=lr))
+        with np.load(io.BytesIO(body)) as z:
+            sr = z["SR"]
+        direct = SRPredictor(ckpt, **PRED_KW).predict(lr)
+        np.testing.assert_allclose(sr, direct, rtol=1e-5, atol=1e-5)
+    finally:
+        srv.shutdown()
+        srv.batcher.shutdown()
 
 
 @pytest.mark.parametrize("bad_len", ["abc", "-1"])

@@ -521,7 +521,7 @@ def test_entry_defaults_to_cuda_and_refuses_unported_options(tmp_path, sr_data,
         sr_task._cli(argv[2:])  # without --device cpu
     with pytest.raises(RuntimeError, match="cuda"):
         sr_seqs_task._cli(_argv(sr_data, str(tmp_path / "s"), seqs=True)[2:])
-    with pytest.raises(NotImplementedError, match="data_parallel"):
+    with pytest.raises(AssertionError, match="only 1 devices"):  # a world of one process
         sr_task._cli(argv + ["--data_parallel", "4"])
     with pytest.raises(ValueError, match="single-frame"):  # the MTSR config, seqsCnt 7
         sr_seqs_task._cli(_argv(sr_data, str(tmp_path / "s"), seqs=True)

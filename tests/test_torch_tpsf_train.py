@@ -319,7 +319,7 @@ def test_entry_defaults_to_cuda_and_refuses_unported_options(tmp_path, raw_dir):
     losses = scan.metric_storage["total_loss"].state_dict()["values"]
     assert scan.scan_epochs and scan.step == 3 and len(losses) == 3 and np.isfinite(losses).all()
     assert scan.model.physics_precision == "default"
-    with pytest.raises(NotImplementedError, match="data_parallel"):
+    with pytest.raises(AssertionError, match="only 1 devices"):  # a world of one process
         tpsf_task._cli(argv + ["--data_parallel", "4"])
     plain = tpsf_task.build_model(dict(tPSFNet_config, use_pallas_physics="false"))
     assert plain.use_kernel is False

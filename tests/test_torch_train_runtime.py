@@ -22,7 +22,7 @@ from tactilesr_tpu.runtime.optim import adam_l2 as jax_adam_l2
 from tactilesr_torch import metrics
 from tactilesr_torch.config import ConfigArgumentParser, add_config_args, apply_overrides, tPSFNet_config
 from tactilesr_torch.data.loader import epoch_batches
-from tactilesr_torch.parallel import check_single_device, get_rank, get_world_size, is_main_process
+from tactilesr_torch.parallel import get_rank, get_world_size, is_main_process
 from tactilesr_torch.runtime import history, schedule
 from tactilesr_torch.runtime.checkpoint import (
     CheckpointManager,
@@ -346,18 +346,6 @@ def test_trainer_refuses_unported_modes(tmp_path):
         _lin_trainer(tmp_path, max_epochs=0, max_iters=4, scan_epochs=True)
     with pytest.raises(AssertionError, match="grad_accum"):
         _lin_trainer(tmp_path, grad_accum=3)
-
-
-@pytest.mark.parametrize("spec, one_device", [
-    ("auto", True), ("off", True), ("False", True), (False, True), (None, True), (1, True),
-    ("1", True), (True, False), ("on", False), (4, False), ("8", False),
-])
-def test_data_parallel_knob_allows_one_device_only(spec, one_device):
-    if one_device:
-        check_single_device(spec)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            check_single_device(spec)
 
 
 def test_trainer_auto_resume_and_device_assert(tmp_path):
