@@ -39,7 +39,11 @@ then the capture follows; a failed capture or replay raises.  Scan mode on
 CUDA makes the optimizer capturable (learning rate and Adam's step
 counters on the device); the eager loop keeps the host-side form.  On the CPU
 the same step function runs uncaptured through the same buffers.  Only the
-epoch hooks fire in this mode, as in JAX.
+epoch hooks fire in this mode, as in JAX.  While a torch profiler runs, an
+epoch records its phases as spans (``runtime/tracing.py``):
+``trainer.epoch`` around ``trainer.prepare`` (the order, the learning rates
+and the buffer copies), ``trainer.replays`` (the steps), ``trainer.fetch``
+(the losses) and ``trainer.log``.
 
 ``remat`` runs the forward and loss under activation checkpointing; the
 recompute's second BatchNorm update is undone, so the running statistics
@@ -80,6 +84,7 @@ from ..models.layers import BatchNorm
 from ..ops.graph import CapturedGraph
 from ..parallel.dist import get_rank, get_world_size, is_main_process
 from ..parallel.mesh import shard_batch_size
+from . import tracing
 from .checkpoint import CheckpointManager, load_checkpoint_file, load_state_dict_strict_false
 from .device import resolve_device
 from .history import MetricStorage
@@ -521,39 +526,48 @@ class Trainer:
         as the JAX trainer logs it (``iter_time`` the epoch's time over its
         steps, ``data_time`` 0)."""
         epoch_start = time.perf_counter()
-        pairs = list(self._epoch_batches())
-        idxs = np.stack([p[0] for p in pairs]).astype(np.int64)
-        masks = np.stack([p[1] for p in pairs])
-        steps = idxs.shape[0]
-        base_iter = self.cur_iter
-        lrs = self._epoch_lrs(steps)
-        if self._scan is None:
-            self._scan = _ScanBuffers(self.epoch_len, self.batch_size, self.device)
-        s = self._scan
-        s.idx.copy_(torch.from_numpy(idxs))
-        s.mask.copy_(torch.from_numpy(masks))
-        s.lr.copy_(torch.from_numpy(lrs))
-        s.k.zero_()
-        for _ in range(steps):
-            self._scan_one()
-            self.step += 1
-        fetched = {name: buf.cpu().tolist() for name, buf in s.losses.items()}
-        per_step = (time.perf_counter() - epoch_start) / steps
-        for k in range(steps):
-            it = base_iter + k
-            metrics = {name: vals[k] for name, vals in fetched.items()}
-            total = sum(metrics.values())
-            if not np.isfinite(total):
-                raise FloatingPointError(
-                    f"Loss became infinite or NaN at iteration={it}! loss_dict={metrics}."
-                )
-            if is_main_process():
-                self.log(it, lr=float(lrs[k]), smooth=False)
-                self.log(it, data_time=0.0)
-                self.log(it, iter_time=per_step)
-                self.log(it, total_loss=total)
-                if len(metrics) > 1:
-                    self.log(it, **metrics)
+        with tracing.span("trainer.epoch", steps=self.epoch_len):
+            with tracing.span("trainer.prepare"):
+                pairs = list(self._epoch_batches())
+                idxs = np.stack([p[0] for p in pairs]).astype(np.int64)
+                masks = np.stack([p[1] for p in pairs])
+                steps = idxs.shape[0]
+                base_iter = self.cur_iter
+                lrs = self._epoch_lrs(steps)
+                if self._scan is None:
+                    self._scan = _ScanBuffers(self.epoch_len, self.batch_size, self.device)
+                s = self._scan
+                s.idx.copy_(torch.from_numpy(idxs))
+                s.mask.copy_(torch.from_numpy(masks))
+                s.lr.copy_(torch.from_numpy(lrs))
+                s.k.zero_()
+            with tracing.span("trainer.replays") as replays:
+                warm, uncaptured = self._warm_steps, self._graph is None
+                for _ in range(steps):
+                    self._scan_one()
+                    self.step += 1
+                # eager: the steps run without the graph (every step on the CPU)
+                replays.set(eager=steps if self.device.type != "cuda" else self._warm_steps - warm,
+                            captured=int(uncaptured and self._graph is not None))
+            with tracing.span("trainer.fetch"):
+                fetched = {name: buf.cpu().tolist() for name, buf in s.losses.items()}
+            per_step = (time.perf_counter() - epoch_start) / steps
+            with tracing.span("trainer.log"):
+                for k in range(steps):
+                    it = base_iter + k
+                    metrics = {name: vals[k] for name, vals in fetched.items()}
+                    total = sum(metrics.values())
+                    if not np.isfinite(total):
+                        raise FloatingPointError(
+                            f"Loss became infinite or NaN at iteration={it}! loss_dict={metrics}."
+                        )
+                    if is_main_process():
+                        self.log(it, lr=float(lrs[k]), smooth=False)
+                        self.log(it, data_time=0.0)
+                        self.log(it, iter_time=per_step)
+                        self.log(it, total_loss=total)
+                        if len(metrics) > 1:
+                            self.log(it, **metrics)
 
     def train_one_iter(self, idx: np.ndarray, mask: np.ndarray) -> None:
         iter_start = time.perf_counter()

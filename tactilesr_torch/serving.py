@@ -16,7 +16,11 @@ its MSRB count).  ``branch_mode`` picks the MTSR branch layout
 which the H100 found no slower than ``per_seq`` at every default bucket
 (PERF.md section 6, PR 11), so one layout is folded per predictor.
 :func:`export_program` writes the forward served at one bucket as a
-``torch.export`` program with the weights in it.
+``torch.export`` program with the weights in it.  While a torch profiler
+runs, ``predict`` records its phases as spans (``runtime/tracing.py``):
+``serving.predict`` around the request, and under it, for each chunk,
+``serving.prepare`` (bucket, pad, split), ``serving.h2d``,
+``serving.launch`` and ``serving.fetch``, then ``serving.assemble``.
 
 ``mesh`` (an in-process ``parallel.Mesh`` over devices, or ``--data-parallel
 auto|N|off`` over the local CUDA devices) serves data-parallel, as JAX
@@ -49,6 +53,7 @@ from .models.inference import (
 from .models.tactile_sr import TactileSR, TactileSRCNN
 from .parallel.mesh import local_devices, resolve_mesh
 from .runtime.checkpoint import load_checkpoint_file
+from .runtime import tracing
 from .runtime.device import resolve_device
 
 __all__ = ["SRPredictor", "DEFAULT_BUCKETS", "MODEL_ARCHS", "export_program"]
@@ -222,22 +227,28 @@ class SRPredictor:
         replicas = self._replicas  # one snapshot for the whole request
         outs = []
         i = 0
-        while i < n:
-            b = self._bucket(n - i)
-            chunk = lr[i:i + b]
-            take = chunk.shape[0]
-            if take < b:
-                chunk = np.concatenate([chunk, np.zeros((b - take,) + chunk.shape[1:], np.float32)])
-            # one equal contiguous shard a device, all enqueued before any is read
-            shards = np.split(np.ascontiguousarray(chunk), len(replicas))
-            ys = [self._forward(w, torch.from_numpy(x).to(dev))
-                  for w, x, dev in zip(replicas, shards, self.devices)]
-            outs.append(torch.cat([y.cpu() for y in ys])[:take].numpy())
-            i += take
-        if not outs:
-            hw = 4 * self._arch["scale_factor"]
-            return np.zeros((0, 1, hw, hw), np.float32)
-        return np.concatenate(outs)
+        with tracing.span("serving.predict", frames=n, chunks=-(-n // self.buckets[-1])):
+            while i < n:
+                with tracing.span("serving.prepare"):
+                    b = self._bucket(n - i)
+                    chunk = lr[i:i + b]
+                    take = chunk.shape[0]
+                    if take < b:
+                        chunk = np.concatenate([chunk, np.zeros((b - take,) + chunk.shape[1:], np.float32)])
+                    # one equal contiguous shard a device, all enqueued before any is read
+                    shards = np.split(np.ascontiguousarray(chunk), len(replicas))
+                with tracing.span("serving.h2d"):
+                    xs = [torch.from_numpy(x).to(dev) for x, dev in zip(shards, self.devices)]
+                with tracing.span("serving.launch"):
+                    ys = [self._forward(w, x) for w, x in zip(replicas, xs)]
+                with tracing.span("serving.fetch"):
+                    outs.append(torch.cat([y.cpu() for y in ys])[:take].numpy())
+                i += take
+            if not outs:
+                hw = 4 * self._arch["scale_factor"]
+                return np.zeros((0, 1, hw, hw), np.float32)
+            with tracing.span("serving.assemble"):
+                return np.concatenate(outs)
 
 
 class _ServedForward(torch.nn.Module):

@@ -57,15 +57,16 @@ def test_port_imports_nothing_of_jax():
 
 
 def test_port_module_list_covers_the_training_runtime():
-    """The modules of the runtime (scan_epochs, remat and ProfilerHook among
-    them), of TactileSRCNN and of generation (the native preprocessing among
-    them) are in the list the import check walks."""
+    """The modules of the runtime (scan_epochs, remat, ProfilerHook and the
+    tracer among them), of TactileSRCNN and of generation (the native
+    preprocessing among them) are in the list the import check walks."""
     mods = set(_modules())
     for m in ("config.default", "config.parser", "data.loader", "metrics", "parallel.dist",
               "parallel.mesh",
               "runtime.checkpoint", "runtime.history", "runtime.hooks.builtin",
               "runtime.hooks.hookbase", "runtime.hooks.profiler", "runtime.logger", "runtime.misc",
-              "runtime.optim", "runtime.schedule", "runtime.trainer", "tasks.tpsf_task", "ops.graph",
+              "runtime.optim", "runtime.schedule", "runtime.tracing", "runtime.trainer", "tasks.tpsf_task",
+              "ops.graph",
               "models.blocks", "models.tactile_sr", "models.inference", "compat.from_jax",
               "native", "data.raw_process", "data.generate", "ops.cuda.probe"):
         assert f"tactilesr_torch.{m}" in mods, m

@@ -2,10 +2,10 @@
 on the CPU: scan mode against the port's eager loop and against the JAX
 trainer's ``lax.scan`` epochs, its resume on an epoch boundary, gradient
 accumulation with an all-padded micro-batch under scan and remat, remat
-against no remat, and the trace window.  On the CPU the scan path runs the
-step function a CUDA graph captures on the card, uncaptured, through the
-same device buffers and step counter.  Also: ``apply_matmul_precision``
-governs cuDNN's TF32 flag."""
+against no remat, and the trace window, iteration by iteration and over
+scan epochs.  On the CPU the scan path runs the step function a CUDA graph
+captures on the card, uncaptured, through the same device buffers and step
+counter.  Also: ``apply_matmul_precision`` governs cuDNN's TF32 flag."""
 
 import json
 import math
@@ -263,6 +263,21 @@ def test_profiler_hook_traces_its_window(tmp_path):
     t2.train(auto_resume=False)
     assert late.trace_path is not None and os.path.getsize(late.trace_path) > 0
     assert late.priority == 4
+
+
+def test_profiler_hook_traces_scan_epochs(tmp_path):
+    """Under ``scan_epochs`` (5-step epochs) a window of iterations 6-8
+    opens before epoch 1, which holds iteration 6, and closes after it: one
+    Chrome trace that names that epoch's spans, and no other epoch's."""
+    t = _lin_trainer(tmp_path / "a", max_epochs=3, scan_epochs=True)
+    hook = ProfilerHook(str(tmp_path / "trace"), start_iter=6, num_iters=3)
+    t.register_hooks([hook])
+    t.train(auto_resume=False)
+    assert hook.trace_path == str(tmp_path / "trace" / "trace_iter_6_9.json")
+    with open(hook.trace_path) as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+    assert "trainer.prepare" in names and "trainer.fetch" in names
+    assert names.count("trainer.epoch") == 1
 
 
 @pytest.mark.parametrize("prec, tf32", [("highest", False), ("high", True), ("default", True),
