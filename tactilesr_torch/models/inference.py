@@ -29,8 +29,19 @@ Exact rewrites applied once at load time (host-side, f32), as in
    ``grouped`` is no slower than ``per_seq`` at every serving bucket
    (PERF.md section 6, PR 11), so ``auto`` picks it for S>1 at every batch.
 
-Kernels are stored in the compute dtype and biases in f32, cast to the
-activation dtype at the add.  Convolutions are ``F.conv2d`` in NCHW.
+On CUDA, kernels are stored channels-last (NHWC) in the compute dtype,
+biases in f32, and every activation between the upsampled input and the
+head's output is channels-last; on the CPU the layout stays NCHW.  Each
+convolution is one call of :func:`_conv` with its epilogue as arguments,
+``relu(conv(x, k) + z + b)``: a bias, a tensor added to its result (a
+residual or a partial sum) and a ReLU.  On a CUDA bf16 tensor a convolution
+with a ReLU is one cuDNN call that runs the epilogue in f32 before the one
+rounding to bf16 (``torch.cudnn_convolution_relu``,
+``torch.cudnn_convolution_add_relu``); cuDNN fuses only NHWC tensors, hence
+the layout.  A convolution with no ReLU, and every one on the CPU, in f32 or
+inside ``torch.export``, runs as ``F.conv2d``, then the adds and the ReLU in
+that order.  The forwards add their conv calls, and those that ran fused,
+into ``counts`` where one is given.
 
 :func:`fold_inference_params` takes the port's ``TactileSR`` state_dict
 (the reference layout); :func:`tactile_sr_infer` is the forward.
@@ -40,6 +51,8 @@ merged and split as TactileSR's.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -226,28 +239,79 @@ def fold_inference_params_cnn(
     return _placed(out, dtype, device)
 
 
+def _layout(device) -> torch.memory_format:
+    """The activations' and kernels' layout: NHWC on CUDA, where cuDNN runs
+    epilogues only on NHWC tensors; elsewhere NCHW, which keeps the CPU's
+    f32 convolutions in the sum order the JAX parity tests were set on."""
+    return torch.channels_last if torch.device(device).type == "cuda" else torch.contiguous_format
+
+
 def _placed(out: dict, dtype: torch.dtype, device) -> dict:
-    """Kernels (``.../k*``) in ``dtype``, biases in f32, on ``device``."""
+    """Kernels (``.../k*``) in ``dtype`` and :func:`_layout`, biases in f32,
+    on ``device``."""
     return {
-        k: v.to(device, dtype if k.rsplit("/", 1)[-1].startswith("k") else torch.float32).contiguous()
+        k: v.to(device, dtype).contiguous(memory_format=_layout(device))
+        if k.rsplit("/", 1)[-1].startswith("k") else v.to(device, torch.float32).contiguous()
         for k, v in out.items()
     }
 
 
-def _conv(x, kernel, bias=None, *, pad: int, groups: int = 1):
-    return F.conv2d(x, kernel, None if bias is None else bias.to(x.dtype), padding=pad, groups=groups)
+def _fusable(x: torch.Tensor) -> bool:
+    """Whether cuDNN runs a convolution's epilogue in the same call: on a
+    CUDA bf16 tensor, outside ``torch.export`` (the fused ops have no fake
+    kernel to trace).  At bucket 1024 on the H100 the fused call beats the
+    split one in every signature of the graph (PERF.md section 6, PR 17)."""
+    return x.is_cuda and x.dtype == torch.bfloat16 and not torch.compiler.is_exporting()
 
 
-def _msrb_infer(folded: dict, pre: str, x):
-    mid = torch.relu(_conv(x, folded[f"{pre}/stage1/k"], folded[f"{pre}/stage1/b"], pad=2))
-    o32 = torch.relu(_conv(mid, folded[f"{pre}/conv32/k"], folded[f"{pre}/conv32/b"], pad=1))
-    o52 = torch.relu(_conv(mid, folded[f"{pre}/conv52/k"], folded[f"{pre}/conv52/b"], pad=2))
-    conf = (
-        _conv(o32, folded[f"{pre}/conf/k32"], pad=0)
-        + _conv(o52, folded[f"{pre}/conf/k52"], pad=0)
-        + folded[f"{pre}/conf/b"].to(o32.dtype)[:, None, None]
-    )
-    return torch.relu(conf + x)
+def _conv(x, kernel, bias=None, *, z=None, relu: bool = False, pad: int, groups: int = 1,
+          counts: dict | None = None):
+    """``relu(conv(x, kernel) + z + bias)``, each of ``z``, ``bias`` and the
+    ReLU optional, in :func:`_layout`: one cuDNN call where :func:`_fusable`,
+    else the convolution, then the adds and the ReLU in that order.
+
+    The fused call reads the bias in the compute dtype: with an f32 bias
+    cuDNN has only engines it compiles at run time, 0.5-3.5 s a signature.
+    Output channels are padded with zero filters to a multiple of 8 there
+    (the 1-channel head), and the result is sliced: cuDNN pads such a
+    convolution itself, and transposes it to NCHW and back."""
+    fused = relu and _fusable(x)
+    if counts is not None:
+        counts["convs"] = counts.get("convs", 0) + 1
+        counts["fused_convs"] = counts.get("fused_convs", 0) + int(fused)
+    if fused:
+        co = kernel.shape[0]
+        if co % 8:
+            padded = torch.empty((co + 8 - co % 8, *kernel.shape[1:]), dtype=kernel.dtype,
+                                 device=kernel.device, memory_format=torch.channels_last).zero_()
+            padded[:co] = kernel
+            kernel = padded
+        bias = None if bias is None else bias.to(x.dtype)
+        if z is None:
+            y = torch.cudnn_convolution_relu(x, kernel, bias, (1, 1), (pad, pad), (1, 1), groups)
+        else:
+            y = torch.cudnn_convolution_add_relu(x, kernel, z, 1, bias, (1, 1), (pad, pad), (1, 1), groups)
+        return y[:, :co] if co % 8 else y
+    y = F.conv2d(x, kernel, padding=pad, groups=groups)
+    if z is not None:
+        y.add_(z)
+    if bias is not None:
+        y.add_(bias[:, None, None])
+    return y.relu_() if relu else y
+
+
+def _upsampled(x: torch.Tensor, scale_factor: int, dtype: torch.dtype) -> torch.Tensor:
+    """The upsampled readings in the compute dtype and :func:`_layout`."""
+    return upsample_bilinear(x, scale_factor).to(dtype, memory_format=_layout(x.device))
+
+
+def _msrb_infer(folded: dict, pre: str, x, conv):
+    mid = conv(x, folded[f"{pre}/stage1/k"], folded[f"{pre}/stage1/b"], relu=True, pad=2)
+    o32 = conv(mid, folded[f"{pre}/conv32/k"], folded[f"{pre}/conv32/b"], relu=True, pad=1)
+    o52 = conv(mid, folded[f"{pre}/conv52/k"], folded[f"{pre}/conv52/b"], relu=True, pad=2)
+    # relu(conf(cat(o32, o52)) + x), the residual added to the first half's partial sum
+    t = conv(o32, folded[f"{pre}/conf/k32"], z=x, pad=0)
+    return conv(o52, folded[f"{pre}/conf/k52"], folded[f"{pre}/conf/b"], z=t, relu=True, pad=0)
 
 
 @torch.no_grad()
@@ -261,48 +325,49 @@ def tactile_sr_infer(
     pattern_layers: int = 6,
     force_layers: int = 1,
     branch_mode: str = "per_seq",
+    counts: dict | None = None,
 ) -> torch.Tensor:
     """Fused serving forward: (B, seqs*axis, 4, 4) f32 -> (B, 1, 4s, 4s) f32.
 
     The same function as ``TactileSR.eval()(x)``; ``folded`` comes from
     :func:`fold_inference_params` with the same ``branch_mode`` and sets
-    the compute dtype."""
+    the compute dtype.  ``counts``, where given, gains the forward's conv
+    calls (``convs``) and those whose epilogue cuDNN ran (``fused_convs``)."""
     branch_mode = resolve_branch_mode(branch_mode, seqs_cnt)
     dt = folded["head1/k"].dtype
-    relu = torch.relu
+    conv = functools.partial(_conv, counts=counts)
     x = x.float()
 
     if branch_mode == "per_seq":
-        acc = None
+        acc = None  # the fuse conv over cat(branch_0..): a sum of split convs
         for s in range(seqs_cnt):
-            xs = upsample_bilinear(x[:, s * axis_cnt:(s + 1) * axis_cnt], scale_factor).to(dt)
-            h = relu(_conv(xs, folded[f"inputLayer_pattern_{s}_conv0/k"],
-                           folded[f"inputLayer_pattern_{s}_conv0/b"], pad=1))
-            h = relu(_conv(h, folded[f"inputLayer_pattern_{s}_conv1/k"],
-                           folded[f"inputLayer_pattern_{s}_conv1/b"], pad=1))
-            c = _conv(h, folded[f"inputContact/k{s}"], pad=1)
-            acc = c if acc is None else acc + c
-        pattern = relu(acc + folded["inputContact/b"].to(acc.dtype)[:, None, None])
+            last = s == seqs_cnt - 1
+            h = _upsampled(x[:, s * axis_cnt:(s + 1) * axis_cnt], scale_factor, dt)
+            h = conv(h, folded[f"inputLayer_pattern_{s}_conv0/k"],
+                     folded[f"inputLayer_pattern_{s}_conv0/b"], relu=True, pad=1)
+            h = conv(h, folded[f"inputLayer_pattern_{s}_conv1/k"],
+                     folded[f"inputLayer_pattern_{s}_conv1/b"], relu=True, pad=1)
+            acc = conv(h, folded[f"inputContact/k{s}"], folded["inputContact/b"] if last else None,
+                       z=acc, relu=last, pad=1)
+        pattern = acc
     else:  # rewrite 4: all S branches as two convolutions
         g0 = seqs_cnt if branch_mode == "grouped" else 1
         g1 = 1 if branch_mode == "dense" else seqs_cnt
-        h = upsample_bilinear(x[:, :seqs_cnt * axis_cnt], scale_factor).to(dt)
-        h = relu(_conv(h, folded["branches/k0"], folded["branches/b0"], pad=1, groups=g0))
-        h = relu(_conv(h, folded["branches/k1"], folded["branches/b1"], pad=1, groups=g1))
-        pattern = relu(_conv(h, folded["inputContact/k"], folded["inputContact/b"], pad=1))
+        h = _upsampled(x[:, :seqs_cnt * axis_cnt], scale_factor, dt)
+        h = conv(h, folded["branches/k0"], folded["branches/b0"], relu=True, pad=1, groups=g0)
+        h = conv(h, folded["branches/k1"], folded["branches/b1"], relu=True, pad=1, groups=g1)
+        pattern = conv(h, folded["inputContact/k"], folded["inputContact/b"], relu=True, pad=1)
 
     for i in range(pattern_layers):
-        pattern = _msrb_infer(folded, f"msrb_{i}", pattern)
+        pattern = _msrb_infer(folded, f"msrb_{i}", pattern, conv)
 
-    force = upsample_bilinear(x[:, :axis_cnt], scale_factor).to(dt)
-    force = relu(_conv(force, folded["force_in/k"], pad=1))
+    force = conv(_upsampled(x[:, :axis_cnt], scale_factor, dt), folded["force_in/k"], relu=True, pad=1)
     for i in range(force_layers):
-        y = relu(_conv(force, folded[f"res_{i}/conv1/k"], folded[f"res_{i}/conv1/b"], pad=1))
-        y = _conv(y, folded[f"res_{i}/conv2/k"], folded[f"res_{i}/conv2/b"], pad=1)
-        force = relu(force + y)
+        y = conv(force, folded[f"res_{i}/conv1/k"], folded[f"res_{i}/conv1/b"], relu=True, pad=1)
+        force = conv(y, folded[f"res_{i}/conv2/k"], folded[f"res_{i}/conv2/b"], z=force, relu=True, pad=1)
 
-    out = relu(_conv(force, folded["head0/kf"], pad=1) + _conv(pattern, folded["head0/kp"], pad=1))
-    out = relu(_conv(out, folded["head1/k"], pad=1))
+    out = conv(pattern, folded["head0/kp"], z=conv(force, folded["head0/kf"], pad=1), relu=True, pad=1)
+    out = conv(out, folded["head1/k"], relu=True, pad=1)
     hw = 4 * scale_factor
     return resize_bilinear_nchw(out, (hw, hw)).float()
 
@@ -314,14 +379,17 @@ def tactile_sr_cnn_infer(
     *,
     scale_factor: int = 10,
     msrb_cnt: int = 6,
+    counts: dict | None = None,
 ) -> torch.Tensor:
     """Fused serving forward of TactileSRCNN: (B, 3, 4, 4) f32 -> (B, 1, 4s,
     4s) f32, the same function as ``TactileSRCNN.eval()(x)``; ``folded``
-    comes from :func:`fold_inference_params_cnn` and sets the compute dtype."""
+    comes from :func:`fold_inference_params_cnn` and sets the compute dtype;
+    ``counts`` as in :func:`tactile_sr_infer`."""
     dt = folded["head/k"].dtype
-    h = upsample_bilinear(x.float(), scale_factor).to(dt)
+    conv = functools.partial(_conv, counts=counts)
+    h = _upsampled(x.float(), scale_factor, dt)
     for i in range(3):
-        h = torch.relu(_conv(h, folded[f"in{i}/k"], folded[f"in{i}/b"], pad=1))
+        h = conv(h, folded[f"in{i}/k"], folded[f"in{i}/b"], relu=True, pad=1)
     for i in range(msrb_cnt):
-        h = _msrb_infer(folded, f"msrb_{i}", h)
-    return torch.relu(_conv(h, folded["head/k"], pad=1)).float()
+        h = _msrb_infer(folded, f"msrb_{i}", h, conv)
+    return conv(h, folded["head/k"], relu=True, pad=1).float()

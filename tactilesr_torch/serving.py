@@ -20,7 +20,8 @@ which the H100 found no slower than ``per_seq`` at every default bucket
 runs, ``predict`` records its phases as spans (``runtime/tracing.py``):
 ``serving.predict`` around the request, and under it, for each chunk,
 ``serving.prepare`` (bucket, pad, split), ``serving.h2d``,
-``serving.launch`` and ``serving.fetch``, then ``serving.assemble``.
+``serving.launch`` (with the chunk's ``convs`` and ``fused_convs`` on a
+fused graph) and ``serving.fetch``, then ``serving.assemble``.
 
 ``mesh`` (an in-process ``parallel.Mesh`` over devices, or ``--data-parallel
 auto|N|off`` over the local CUDA devices) serves data-parallel, as JAX
@@ -191,14 +192,16 @@ class SRPredictor:
         logger.info("SRPredictor weights hot-swapped from %s", checkpoint_path)
 
     @torch.no_grad()
-    def _forward(self, w, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, w, x: torch.Tensor, counts: dict | None = None) -> torch.Tensor:
+        """The served forward of one replica; a fused one adds its conv
+        calls into ``counts`` (``models/inference.py``)."""
         if self.fused and self.model_arch == "TactileSRCNN":
             return tactile_sr_cnn_infer(w, x, scale_factor=self._arch["scale_factor"],
-                                        msrb_cnt=self._pattern_layers)
+                                        msrb_cnt=self._pattern_layers, counts=counts)
         if self.fused:
             return tactile_sr_infer(
                 w, x, pattern_layers=self._pattern_layers, force_layers=self._force_layers,
-                branch_mode=self.branch_mode, **self._arch,
+                branch_mode=self.branch_mode, counts=counts, **self._arch,
             )
         return w(x)
 
@@ -239,8 +242,10 @@ class SRPredictor:
                     shards = np.split(np.ascontiguousarray(chunk), len(replicas))
                 with tracing.span("serving.h2d"):
                     xs = [torch.from_numpy(x).to(dev) for x, dev in zip(shards, self.devices)]
-                with tracing.span("serving.launch"):
-                    ys = [self._forward(w, x) for w, x in zip(replicas, xs)]
+                with tracing.span("serving.launch") as launch:
+                    counts = {}
+                    ys = [self._forward(w, x, counts) for w, x in zip(replicas, xs)]
+                    launch.set(**counts)
                 with tracing.span("serving.fetch"):
                     outs.append(torch.cat([y.cpu() for y in ys])[:take].numpy())
                 i += take

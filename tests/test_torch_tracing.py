@@ -95,6 +95,18 @@ def test_predict_spans_form_one_tree_per_request(predictor, thread):
         _launch_ops_inside_the_spans(prof, [r for r in kids if r.name == "serving.launch"])
 
 
+def test_launch_spans_carry_the_chunks_conv_counts(tmp_path):
+    """A full-depth STSR (6 MSRB, 1 ResBlock) makes 39 conv calls a chunk,
+    none of them fused on the CPU; each ``serving.launch`` carries them."""
+    torch.manual_seed(0)
+    path = save_checkpoint_file(str(tmp_path / "m6.pth"), TactileSR(scale_factor=2).state_dict())
+    pred = SRPredictor(path, scale_factor=2, compute_dtype="float32", buckets=BUCKETS, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]):
+        pred.predict(_frames())
+    launches = [r for r in tracing.records() if r.name == "serving.launch"]
+    assert [r.attrs for r in launches] == [{"convs": 39, "fused_convs": 0}] * 3
+
+
 def _launch_ops_inside_the_spans(prof, spans):
     """Each span is a ``serving.launch`` annotation in the profile, and every
     ``aten::`` op inside the annotation lies in the span, on one clock.  (The
