@@ -15,7 +15,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-__all__ = ["CapturedGraph", "register_counters"]
+__all__ = ["CapturedGraph", "counter_totals", "register_counters"]
 
 # dicts of name -> launches, each bumped by its wrappers on the host
 _counters: List[Dict[str, int]] = []
@@ -25,6 +25,17 @@ def register_counters(counts: Dict[str, int]) -> None:
     """Keep ``counts`` true under graph capture and replay."""
     if not any(c is counts for c in _counters):
         _counters.append(counts)
+
+
+def counter_totals() -> Dict[str, int]:
+    """Every registered counter's value by name (summed where two dicts
+    share a name): two readings bracket a block's launches, replays
+    included."""
+    out: Dict[str, int] = {}
+    for c in _counters:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return out
 
 
 class CapturedGraph:

@@ -11,8 +11,10 @@ Tracing is on while a torch profiler runs (``torch.profiler.profile``,
 ``ProfilerHook``), in every thread of the process, and then each span also
 enters ``torch.profiler.record_function(name)``, so that the profiler's
 traces name the phases.  Off, ``span`` returns one shared no-op context:
-no clock read, no record.  Records go into a bounded buffer; once it is
-full each new record drops the oldest and counts it in ``dropped()``.
+no clock read, no record.  A span's ``recording`` says which of the two it
+is, so that a block counts what it did (for ``set``) only when traced.
+Records go into a bounded buffer; once it is full each new record drops
+the oldest and counts it in ``dropped()``.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ class _Off:
     """The span of tracing off: enters, exits and takes attrs as a no-op."""
 
     __slots__ = ()
+    recording = False
 
     def __enter__(self):
         return self
@@ -69,6 +72,7 @@ class _Open:
     """A span while tracing is on: its record is made when the block exits."""
 
     __slots__ = ("tracer", "name", "attrs", "id", "parent_id", "root_id", "start_ns", "_annotation")
+    recording = True
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self.tracer, self.name, self.attrs = tracer, name, attrs

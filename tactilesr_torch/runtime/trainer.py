@@ -43,7 +43,10 @@ epoch hooks fire in this mode, as in JAX.  While a torch profiler runs, an
 epoch records its phases as spans (``runtime/tracing.py``):
 ``trainer.epoch`` around ``trainer.prepare`` (the order, the learning rates
 and the buffer copies), ``trainer.replays`` (the steps), ``trainer.fetch``
-(the losses) and ``trainer.log``.
+(the losses) and ``trainer.log``.  ``trainer.replays`` carries, besides
+its eager and captured steps, ``launches``: what each counter registered
+with ``ops/graph.py::register_counters`` gained over the steps, replays
+included (the physics kernels' launches, for a tPSFNet).
 
 ``remat`` runs the forward and loss under activation checkpointing; the
 recompute's second BatchNorm update is undone, so the running statistics
@@ -81,7 +84,7 @@ import numpy as np
 import torch
 
 from ..models.layers import BatchNorm
-from ..ops.graph import CapturedGraph
+from ..ops.graph import CapturedGraph, counter_totals
 from ..parallel.dist import get_rank, get_world_size, is_main_process
 from ..parallel.mesh import shard_batch_size
 from . import tracing
@@ -543,12 +546,15 @@ class Trainer:
                 s.k.zero_()
             with tracing.span("trainer.replays") as replays:
                 warm, uncaptured = self._warm_steps, self._graph is None
+                before = counter_totals() if replays.recording else None
                 for _ in range(steps):
                     self._scan_one()
                     self.step += 1
                 # eager: the steps run without the graph (every step on the CPU)
                 replays.set(eager=steps if self.device.type != "cuda" else self._warm_steps - warm,
                             captured=int(uncaptured and self._graph is not None))
+                if before is not None:
+                    replays.set(launches={k: n - before.get(k, 0) for k, n in counter_totals().items()})
             with tracing.span("trainer.fetch"):
                 fetched = {name: buf.cpu().tolist() for name, buf in s.losses.items()}
             per_step = (time.perf_counter() - epoch_start) / steps

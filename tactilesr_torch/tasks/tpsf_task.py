@@ -46,6 +46,7 @@ from ..runtime.trainer import Trainer, eval_forward, masked_mse
 __all__ = [
     "TPSFTrainer",
     "build_model",
+    "build_trainer",
     "build_eval_fn",
     "InferenceHookTPSF",
     "main",
@@ -176,6 +177,42 @@ def _seq_arrays(config):
     return out
 
 
+def build_trainer(config, model: TPSFNet, train_arrays: Dict[str, np.ndarray], *,
+                  mesh=None) -> TPSFTrainer:
+    """The recipe's trainer of ``model`` over ``train_arrays`` (``LR``
+    (N,3,4,4) and ``depth`` (N,100,100)) on the config's ``device``: the
+    StepLR schedule by epoch over ``ceil(N / train_batch_size)`` steps,
+    ``adam_l2`` with ``weight_decay`` and ``clip_grad_norm``, ``epochs``,
+    ``scan_epochs``, ``remat``, ``grad_accum``, checkpoints into
+    ``save_dir``; no hook beyond the trainer's defaults.  ``mesh`` None
+    trains on this process's device alone."""
+    dev = resolve_device(config.get("device", "cuda"))
+    model = model.to(dev)
+    lr_schedule = LRWarmupSchedule(
+        StepLR(config["lr"], config["lr_scheduler_step_size"], config["lr_scheduler_gamma"]),
+        by_epoch=True,
+        epoch_len=-(-train_arrays["LR"].shape[0] // config["train_batch_size"]),
+    )
+    return TPSFTrainer(
+        config=config,
+        model=model,
+        optimizer=adam_l2(model.parameters(), weight_decay=config["weight_decay"],
+                          clip_grad_norm=config.get("clip_grad_norm", 0.0)),
+        lr_schedule=lr_schedule,
+        train_arrays=train_arrays,
+        batch_size=config["train_batch_size"],
+        max_epochs=config["epochs"],
+        work_dir=config["save_dir"],
+        checkpoint_period=config["checkpoint_period"],
+        seed=config["random_seed"],
+        scan_epochs=bool(config.get("scan_epochs", False)),
+        remat=bool(config.get("remat", False)),
+        grad_accum=int(config.get("grad_accum", 1)),
+        device=dev,
+        mesh=mesh,
+    )
+
+
 def main(config=None, mesh=None, max_epochs: Optional[int] = None,
          hooks: Sequence[HookBase] = ()) -> TPSFTrainer:
     """Train from ``config``; ``hooks`` are registered beside the recipe's own.
@@ -186,7 +223,6 @@ def main(config=None, mesh=None, max_epochs: Optional[int] = None,
     config = dict(config or tPSFNet_config)
     init_distributed(device=config.get("device", "cuda"))
     setup_logger("tactilesr_torch", process_index=get_rank())
-    dev = resolve_device(config.get("device", "cuda"))
     set_random_seed(config["random_seed"], config["deterministic"])
     apply_matmul_precision(config)
     if mesh is None:
@@ -201,31 +237,10 @@ def main(config=None, mesh=None, max_epochs: Optional[int] = None,
     lr_train, depth_train = train_ds.stacked()
     lr_test, depth_test = test_ds.stacked()
 
-    model = build_model(config).to(dev)
-    epochs = max_epochs or config["epochs"]
-    lr_schedule = LRWarmupSchedule(
-        StepLR(config["lr"], config["lr_scheduler_step_size"], config["lr_scheduler_gamma"]),
-        by_epoch=True,
-        epoch_len=-(-lr_train.shape[0] // config["train_batch_size"]),
-    )
-    trainer = TPSFTrainer(
-        config=config,
-        model=model,
-        optimizer=adam_l2(model.parameters(), weight_decay=config["weight_decay"],
-                          clip_grad_norm=config.get("clip_grad_norm", 0.0)),
-        lr_schedule=lr_schedule,
-        train_arrays={"LR": lr_train, "depth": depth_train},
-        batch_size=config["train_batch_size"],
-        max_epochs=epochs,
-        work_dir=config["save_dir"],
-        checkpoint_period=config["checkpoint_period"],
-        seed=config["random_seed"],
-        scan_epochs=bool(config.get("scan_epochs", False)),
-        remat=bool(config.get("remat", False)),
-        grad_accum=int(config.get("grad_accum", 1)),
-        device=dev,
-        mesh=mesh,
-    )
+    if max_epochs:
+        config["epochs"] = max_epochs
+    trainer = build_trainer(config, build_model(config), {"LR": lr_train, "depth": depth_train},
+                            mesh=mesh)
     trainer.register_hooks([EvalHook(1, build_eval_fn(trainer, {"LR": lr_test, "depth": depth_test}))])
 
     if config.get("inference_test"):

@@ -1,8 +1,8 @@
 """The port's program spans (``tactilesr_torch/runtime/tracing.py``) on the
 CPU: off without a profiler; under one, the tree of ``SRPredictor.predict``
 (on the calling thread and on a ``MicroBatcher`` worker) and of a
-``scan_epochs`` epoch, on the clock of the profiler's own events, with the
-served maps unchanged."""
+``scan_epochs`` epoch (its replays with the launch counters' gains), on the
+clock of the profiler's own events, with the served maps unchanged."""
 
 import numpy as np
 import pytest
@@ -10,6 +10,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from tactilesr_torch.models.tactile_sr import TactileSR
+from tactilesr_torch.ops.graph import counter_totals, register_counters
+from tactilesr_torch.runtime import trainer as trainer_module
 from tactilesr_torch.runtime import tracing
 from tactilesr_torch.runtime.checkpoint import save_checkpoint_file
 from tactilesr_torch.server import MicroBatcher
@@ -137,8 +139,37 @@ def test_scan_epoch_spans(tmp_path):
         assert ep.parent_id is None and ep.attrs == {"steps": t.epoch_len}
         kids = _children([r for r in recs if r.root_id == ep.id], ep)
         assert [r.name for r in kids] == list(EPOCH)
-        assert kids[1].attrs == {"eager": t.epoch_len, "captured": 0}
+        launches = kids[1].attrs.pop("launches")  # every registered counter's gain: none bumps here
+        assert kids[1].attrs == {"eager": t.epoch_len, "captured": 0} and not any(launches.values())
     assert len(recs) == 2 * (1 + len(EPOCH))
+
+
+def test_replays_carry_the_registered_counters_launches(tmp_path, monkeypatch):
+    """A counter registered with ``register_counters`` and bumped inside the
+    step shows on each ``trainer.replays`` span what it gained over the
+    epoch's steps; without a profiler nothing is recorded and no counter is
+    read."""
+    counts = {"test_kernel": 0}
+    register_counters(counts)
+    reads = []
+    monkeypatch.setattr(trainer_module, "counter_totals", lambda: reads.append(1) or counter_totals())
+
+    def bumping(t):
+        loss = t.train_cal_loss
+
+        def step(batch):
+            counts["test_kernel"] += 2
+            return loss(batch)
+        t.train_cal_loss = step
+        return t
+
+    bumping(_lin_trainer(tmp_path / "off", max_epochs=2, scan_epochs=True)).train(auto_resume=False)
+    assert tracing.records() == [] and not reads and counts["test_kernel"] > 0
+    t = bumping(_lin_trainer(tmp_path / "on", max_epochs=2, scan_epochs=True))
+    with profile(activities=[ProfilerActivity.CPU]):
+        t.train(auto_resume=False)
+    replays = [r for r in tracing.records() if r.name == "trainer.replays"]
+    assert [r.attrs["launches"]["test_kernel"] for r in replays] == [2 * t.epoch_len] * 2 and len(reads) == 4
 
 
 def test_the_buffer_drops_its_oldest_and_counts(monkeypatch):
