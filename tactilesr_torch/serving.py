@@ -8,7 +8,8 @@ layer eval forward instead), keeps the weights on the device, and streams
 (N, C, 4, 4) readings to (N, 1, 4s, 4s) contact-pressure maps.  Requests are
 padded up to a fixed set of batch buckets, and larger ones are split into
 chunks of the largest bucket, so the device only ever sees those shapes.
-Compute runs in bf16 by default; the output is f32.  ``model_arch`` picks
+Compute runs in bf16 by default; the maps come back in f32, in one array
+the request owns.  ``model_arch`` picks
 the network, as the training config's key does: ``TactileSR`` (STSR/MTSR,
 the default) or ``TactileSRCNN`` (single-frame; ``pattern_layers`` is then
 its MSRB count).  ``branch_mode`` picks the MTSR branch layout
@@ -16,20 +17,36 @@ its MSRB count).  ``branch_mode`` picks the MTSR branch layout
 which the H100 found no slower than ``per_seq`` at every default bucket
 (PERF.md section 6, PR 11), so one layout is folded per predictor.
 :func:`export_program` writes the forward served at one bucket as a
-``torch.export`` program with the weights in it.  While a torch profiler
-runs, ``predict`` records its phases as spans (``runtime/tracing.py``):
-``serving.predict`` around the request, and under it, for each chunk,
-``serving.prepare`` (bucket, pad, split), ``serving.h2d``,
-``serving.launch`` (with the chunk's ``convs`` and ``fused_convs`` on a
-fused graph) and ``serving.fetch``, then ``serving.assemble``.
+``torch.export`` program with the weights in it.
+
+``predict`` pipelines its chunks two deep through staging slots that the
+predictor owns: each device holds two input and two output slots of the
+largest bucket's shard, pinned on a CUDA device (plain tensors on the CPU,
+where every copy is synchronous).  A chunk's rows, zero-padded to its
+bucket, go into the free input slot and to the device with a non-blocking
+copy; its forward's output comes back into the matching output slot,
+followed by an event.  The host fetches chunk k (waits on its event, copies
+its rows into the request's result) only after chunk k+1 is enqueued, so
+the device runs k+1 meanwhile; chunk k+1 reuses the slots of chunk k-1,
+which the host has already fetched.  The result is one fresh array a
+request, never a slot, and one lock a predictor keeps two callers off the
+slots.  While a torch profiler runs, ``predict`` records its phases as
+spans (``runtime/tracing.py``): ``serving.predict`` around the request
+(``frames``, ``chunks``, and ``overlapped``: the chunks fetched after the
+next one was enqueued), and under it, in the pipeline's order, each
+chunk's ``serving.prepare`` (bucket, pad into the slot), ``serving.h2d``
+and ``serving.launch`` (the forward and the copy back into the slot; the
+chunk's ``convs`` and ``fused_convs`` on a fused graph), then the previous
+chunk's ``serving.fetch``; the last chunk's fetch, then
+``serving.assemble``.
 
 ``mesh`` (an in-process ``parallel.Mesh`` over devices, or ``--data-parallel
 auto|N|off`` over the local CUDA devices) serves data-parallel, as JAX
 shards a batch over its mesh: the buckets round up to multiples of the data
 axis, the folded weights are replicated once on each device, every padded
-bucket splits into equal contiguous shards, each enqueued on its device,
-and the shards' outputs are concatenated.  A hot swap replaces every
-replica from one checkpoint.
+bucket splits into equal contiguous shards, each enqueued on its device
+through its own slots, and each shard's rows land in their place in the
+result.  A hot swap replaces every replica from one checkpoint.
 
     python -m tactilesr_torch.serving --checkpoint x.pth --input frames.npz --output sr.npz
     python -m tactilesr_torch.serving --checkpoint x.pth --input test.npz --evaluate
@@ -38,6 +55,7 @@ replica from one checkpoint.
 from __future__ import annotations
 
 import logging
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -71,6 +89,44 @@ def _spec(weights) -> dict:
     if isinstance(weights, torch.nn.Module):
         weights = weights.state_dict()
     return {k: (tuple(v.shape), v.dtype) for k, v in weights.items()}
+
+
+class _Staging:
+    """One device's host slots for ``predict``'s chunks: two a direction,
+    each of ``rows`` rows (the largest bucket's shard).  On a CUDA device
+    they are pinned, the copies are non-blocking, and an event follows
+    each copy back; on the CPU they are plain tensors and every copy is
+    synchronous."""
+
+    def __init__(self, device: torch.device, rows: int, in_shape: tuple, out_shape: tuple):
+        pin = device.type == "cuda"
+        self.device = device
+        self.inputs = tuple(torch.empty((rows,) + in_shape, pin_memory=pin) for _ in range(2))
+        self.outputs = tuple(torch.empty((rows,) + out_shape, pin_memory=pin) for _ in range(2))
+        self.events = tuple(torch.cuda.Event() for _ in range(2)) if pin else None
+
+    def fill(self, slot: int, rows: np.ndarray, size: int) -> None:
+        """Input slot ``slot``'s first ``size`` rows: ``rows``, then zeros."""
+        view = self.inputs[slot][:size].numpy()
+        view[:len(rows)] = rows
+        view[len(rows):] = 0
+
+    def send(self, slot: int, size: int) -> torch.Tensor:
+        return self.inputs[slot][:size].to(self.device, non_blocking=True)
+
+    def receive(self, slot: int, y: torch.Tensor) -> None:
+        """Enqueue the copy of a forward's output into output slot ``slot``."""
+        self.outputs[slot][:len(y)].copy_(y, non_blocking=True)
+        if self.events is not None:
+            self.events[slot].record(torch.cuda.current_stream(self.device))
+
+    def fetch(self, slot: int, dst: np.ndarray) -> None:
+        """Wait for output slot ``slot``; copy its first rows into ``dst``
+        (torch's copy runs on its intra-op threads, which share the page
+        faults of a fresh result between them)."""
+        if self.events is not None:
+            self.events[slot].synchronize()
+        torch.from_numpy(dst).copy_(self.outputs[slot][:len(dst)])
 
 
 class SRPredictor:
@@ -125,6 +181,10 @@ class SRPredictor:
         self.branch_mode = resolve_branch_mode(branch_mode, seqs_cnt)
         self.allow_pickle = allow_pickle
         self._replicas = None
+        hw = 4 * scale_factor
+        self._staging = tuple(_Staging(d, self.buckets[-1] // len(self.devices), (self.in_channels, 4, 4),
+                                       (1, hw, hw)) for d in self.devices)
+        self._lock = threading.Lock()  # one request at a time on the slots
         self._load_weights(checkpoint_path)
         logger.info("SRPredictor ready: %s (buckets %s, fused=%s, branch_mode %s, %s on %s)",
                     checkpoint_path, self.buckets, fused, self.branch_mode, compute_dtype,
@@ -206,14 +266,11 @@ class SRPredictor:
         return w(x)
 
     def warmup(self) -> None:
-        """Run every bucket once on every replica (cuDNN picks its algorithms
-        on first use)."""
-        for w, dev in zip(self._replicas, self.devices):
-            for b in self.buckets:
-                self._forward(w, torch.zeros((b // len(self.devices), self.in_channels, 4, 4),
-                                             device=dev))
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        """Serve one request of each bucket: every bucket runs once on every
+        replica (cuDNN picks its algorithms on first use), through the
+        staging slots and their copies."""
+        for b in self.buckets:
+            self.predict(np.zeros((b, self.in_channels, 4, 4), np.float32))
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -222,38 +279,52 @@ class SRPredictor:
         return self.buckets[-1]
 
     def predict(self, lr: np.ndarray) -> np.ndarray:
-        """(N, C, 4, 4) raw-scaled readings -> (N, 1, 4s, 4s) SR maps (f32)."""
+        """(N, C, 4, 4) raw-scaled readings -> (N, 1, 4s, 4s) SR maps (f32),
+        in a new array.  Chunk k is fetched after chunk k+1 is enqueued."""
         lr = np.asarray(lr, np.float32)
         if lr.ndim != 4 or lr.shape[1:] != (self.in_channels, 4, 4):
             raise ValueError(f"expected (N, {self.in_channels}, 4, 4), got {lr.shape}")
         n = lr.shape[0]
+        hw = 4 * self._arch["scale_factor"]
         replicas = self._replicas  # one snapshot for the whole request
-        outs = []
-        i = 0
-        with tracing.span("serving.predict", frames=n, chunks=-(-n // self.buckets[-1])):
+        with self._lock, tracing.span("serving.predict", frames=n,
+                                      chunks=-(-n // self.buckets[-1])) as root:
+            out = np.empty((n, 1, hw, hw), np.float32)
+            pending = None  # (slot, first row, rows, shard) of the last chunk enqueued
+            overlapped = i = slot = 0
             while i < n:
                 with tracing.span("serving.prepare"):
                     b = self._bucket(n - i)
-                    chunk = lr[i:i + b]
-                    take = chunk.shape[0]
-                    if take < b:
-                        chunk = np.concatenate([chunk, np.zeros((b - take,) + chunk.shape[1:], np.float32)])
-                    # one equal contiguous shard a device, all enqueued before any is read
-                    shards = np.split(np.ascontiguousarray(chunk), len(replicas))
+                    take = min(b, n - i)
+                    shard = b // len(replicas)  # one equal contiguous shard a device
+                    for d, st in enumerate(self._staging):
+                        st.fill(slot, lr[i + d * shard:i + min(take, (d + 1) * shard)], shard)
                 with tracing.span("serving.h2d"):
-                    xs = [torch.from_numpy(x).to(dev) for x, dev in zip(shards, self.devices)]
+                    xs = [st.send(slot, shard) for st in self._staging]
                 with tracing.span("serving.launch") as launch:
                     counts = {}
-                    ys = [self._forward(w, x, counts) for w, x in zip(replicas, xs)]
+                    for w, x, st in zip(replicas, xs, self._staging):
+                        st.receive(slot, self._forward(w, x, counts))
                     launch.set(**counts)
-                with tracing.span("serving.fetch"):
-                    outs.append(torch.cat([y.cpu() for y in ys])[:take].numpy())
+                if pending is not None:
+                    with tracing.span("serving.fetch"):
+                        self._fetch(out, *pending)
+                    overlapped += 1
+                pending = (slot, i, take, shard)
                 i += take
-            if not outs:
-                hw = 4 * self._arch["scale_factor"]
-                return np.zeros((0, 1, hw, hw), np.float32)
+                slot ^= 1  # the next chunk takes the slots of the one fetched last
+            if pending is not None:
+                with tracing.span("serving.fetch"):
+                    self._fetch(out, *pending)
+            root.set(overlapped=overlapped)
             with tracing.span("serving.assemble"):
-                return np.concatenate(outs)
+                return out
+
+    def _fetch(self, out: np.ndarray, slot: int, i: int, take: int, shard: int) -> None:
+        """Wait for a chunk's output slots and copy its real rows, each
+        device's shard in turn, into ``out[i:i + take]``."""
+        for d, st in enumerate(self._staging):
+            st.fetch(slot, out[i + min(d * shard, take):i + min((d + 1) * shard, take)])
 
 
 class _ServedForward(torch.nn.Module):

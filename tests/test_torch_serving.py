@@ -2,7 +2,10 @@
 ``make_sr_checkpoint`` bundle exported to the port's ``.pth`` format.
 
 Tolerance: rtol 1e-4 / atol 1e-5, as for the fused graph (f32 convs in
-another order); padding and chunking must not change any row."""
+another order); padding and chunking must not change any row.  The
+pipelined ``predict`` (staging slots, chunk k fetched after chunk k+1 is
+enqueued) is held bit for bit against a chunk-by-chunk forward of the same
+padded chunks."""
 
 import json
 
@@ -15,6 +18,8 @@ from tactilesr_tpu.runtime.checkpoint import load_checkpoint_file as jax_load
 from tactilesr_tpu.serving import SRPredictor as JaxSRPredictor
 from tactilesr_torch import serving as torch_serving
 from tactilesr_torch.compat.from_jax import tactile_sr_state_dict
+from tactilesr_torch.models.tactile_sr import TactileSR
+from tactilesr_torch.parallel import make_mesh
 from tactilesr_torch.runtime.checkpoint import save_checkpoint_file
 from tactilesr_torch.serving import SRPredictor
 
@@ -43,6 +48,40 @@ def test_predict_matches_jax(tmp_path, rng, n):
         got = SRPredictor(port_path, buckets=buckets, fused=fused, device="cpu", **KW).predict(lr)
         assert got.shape == (n, 1, 16, 16) and got.dtype == np.float32
         np.testing.assert_allclose(got, want, **TOL)
+
+
+def _chunk_by_chunk(pred, lr):
+    """What ``predict`` serves, one chunk at a time: each chunk zero-padded
+    to its bucket, split into a shard a replica, each shard's forward
+    fetched at once."""
+    outs, i = [], 0
+    while i < len(lr):
+        b = pred._bucket(len(lr) - i)
+        chunk = np.zeros((b,) + lr.shape[1:], np.float32)
+        take = min(b, len(lr) - i)
+        chunk[:take] = lr[i:i + take]
+        shards = np.split(chunk, len(pred._replicas))
+        outs.append(torch.cat([pred._forward(w, torch.from_numpy(x).to(d)).cpu()
+                               for w, x, d in zip(pred._replicas, shards, pred.devices)])[:take].numpy())
+        i += take
+    return np.concatenate(outs)
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+@pytest.mark.parametrize("n", [1, 7, 1023, 1024, 1025, 3000, 8192])
+def test_pipelined_predict_is_the_chunk_by_chunk_forward(tmp_path, n, replicas):
+    """At the default buckets, on one CPU device or a two-device mesh of
+    the CPU (each shard through its own slots)."""
+    torch.manual_seed(0)
+    model = TactileSR(scale_factor=2, pattern_feature_extra_layer_cnt=1, force_feature_extra_layer_cnt=1)
+    path = save_checkpoint_file(str(tmp_path / "m.pth"), model.state_dict())
+    mesh = make_mesh(["cpu"] * replicas) if replicas > 1 else None
+    pred = SRPredictor(path, scale_factor=2, pattern_layers=1, force_layers=1, compute_dtype="float32",
+                       device="cpu", mesh=mesh)
+    lr = (np.random.default_rng(n).random((n, 3, 4, 4)) * 4).astype(np.float32)
+    got = pred.predict(lr)
+    assert got.shape == (n, 1, 8, 8) and got.dtype == np.float32 and got.flags.owndata
+    np.testing.assert_array_equal(got, _chunk_by_chunk(pred, lr))
 
 
 def test_padding_does_not_leak(tmp_path, rng):

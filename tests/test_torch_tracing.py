@@ -20,7 +20,7 @@ from test_torch_scan import _lin_trainer
 
 BUCKETS = (4, 16)
 FRAMES = 2 * 16 + 5  # two chunks of 16, then 5 rows padded into 16
-CHUNK = ("serving.prepare", "serving.h2d", "serving.launch", "serving.fetch")
+ENQUEUE = ("serving.prepare", "serving.h2d", "serving.launch")
 EPOCH = ("trainer.prepare", "trainer.replays", "trainer.fetch", "trainer.log")
 CLOCK_NS = 500_000  # the tracer's clock against the profiler's events
 
@@ -78,9 +78,12 @@ def _on_the_worker(predictor, frames):
 
 @pytest.mark.parametrize("thread", ["caller", "microbatcher"])
 def test_predict_spans_form_one_tree_per_request(predictor, thread):
-    """One ``serving.predict`` with ``frames`` and ``chunks``, then per chunk
-    prepare, h2d, launch and fetch, then assemble: children of the root,
-    inside it and in turn.  The maps are bit-equal to an unprofiled call's."""
+    """One ``serving.predict`` with ``frames``, ``chunks`` and ``overlapped``
+    (the chunks fetched after the next one was enqueued: 2 of 3), then in
+    the pipeline's order each chunk's prepare, h2d and launch, the previous
+    chunk's fetch, the last chunk's fetch, then assemble: children of the
+    root, inside it and in turn.  The maps are bit-equal to an unprofiled
+    call's."""
     frames = _frames()
     want = predictor.predict(frames)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -89,9 +92,10 @@ def test_predict_spans_form_one_tree_per_request(predictor, thread):
     recs = tracing.records()
     (root,) = [r for r in recs if r.name == "serving.predict"]
     assert root.parent_id is None and root.root_id == root.id
-    assert root.attrs == {"frames": FRAMES, "chunks": 3}
+    assert root.attrs == {"frames": FRAMES, "chunks": 3, "overlapped": 2}
     kids = _children(recs, root)
-    assert [r.name for r in kids] == list(CHUNK) * 3 + ["serving.assemble"]
+    fetch = ("serving.fetch",)
+    assert [r.name for r in kids] == list(ENQUEUE + ENQUEUE + fetch + ENQUEUE + fetch + fetch) + ["serving.assemble"]
     assert len(recs) == 1 + len(kids)
     if thread == "caller":  # the profiler records the ops of the thread that started it
         _launch_ops_inside_the_spans(prof, [r for r in kids if r.name == "serving.launch"])
