@@ -156,14 +156,11 @@ Phases (any failure exits non-zero and prints no result line):
 9. device     -- the memory scan, the freest device and the bf16 matmul
                  burn-in (``runtime/device.py``): TFLOP/s in (0, 105% of
                  the 989 TFLOP/s dense peak]
-   bench      -- ``python -m tactilesr_torch.bench``'s default run, ``--seqs
-                 7``, ``--train`` and ``--tpsf --batch 8192`` at each
-                 precision, cut to ``BENCH_PLAN``'s rounds and calls: keys,
-                 ``mfu`` and the share of the bound in (0, 1.05), and under
-                 ``--tpsf`` exactly its precision's kernel launched (the
-                 launches of that path in the kernel record)
-   bench_server -- ``scripts/bench_server.py --clients 16``: every phase
-                 served, the overload phase's queue within its bound
+   bench      -- ``python -m tactilesr_torch.bench --batch 8192`` at each
+                 precision, cut to ``BENCH_ROUNDS`` x ``BENCH_CALLS``: keys,
+                 the share of the bound in (0, 1.05), and exactly its
+                 precision's kernel launched (the launches of that path in
+                 the kernel record)
    interchange -- the trained STSR ``.pth`` -> JAX ``.ckpt`` -> ``.pth``
                  (``compat/torch_convert.py``, ``compat/export_torch.py``),
                  bit-equal, and the three files served to the same output
@@ -199,7 +196,6 @@ from tactilesr_torch import bench, graft_entry  # noqa: E402
 from tactilesr_torch.bench import (  # noqa: E402
     PEAK_BF16_FLOPS,
     cnn_flops_per_frame,
-    device_profile,
     fused_bound_ms,
     nvidia_smi_line,
     sr_flops_per_frame,
@@ -223,6 +219,7 @@ from tactilesr_torch.compat.export_torch import export_checkpoint_file  # noqa: 
 from tactilesr_torch.compat.torch_convert import convert_checkpoint_file  # noqa: E402
 from tactilesr_torch.runtime.checkpoint import load_checkpoint_file, save_checkpoint_file  # noqa: E402
 from tactilesr_torch.runtime.device import (  # noqa: E402
+    device_ops,
     parse_device_memory,
     select_device_with_most_free_memory,
 )
@@ -237,7 +234,6 @@ from tactilesr_torch.serving import (  # noqa: E402
 from tactilesr_torch.runtime.optim import adam_l2  # noqa: E402
 from tactilesr_torch.runtime.schedule import LRWarmupSchedule, StepLR  # noqa: E402
 from tactilesr_torch.runtime.trainer import SCAN_WARMUP_STEPS  # noqa: E402
-from tactilesr_torch.scripts import bench_server  # noqa: E402
 from tactilesr_torch.server import create_server  # noqa: E402
 from tactilesr_torch.tasks import sr_seqs_task, sr_task, tpsf_task  # noqa: E402
 
@@ -256,6 +252,8 @@ F32_RTOL, F32_ATOL_REL = 1e-4, 1e-4
 
 SR_EPOCHS = 2
 SR_PARITY_BATCH, SR_PARITY_STEPS = 8, 2
+HOST_LAUNCH = re.compile(r"^(cudaLaunchKernel|cudaLaunchKernelExC|cuLaunchKernel|cuLaunchKernelEx|"
+                         r"cudaGraphLaunch|cudaMemcpyAsync|cudaMemsetAsync)")
 
 def log(msg):
     print(msg, flush=True)
@@ -302,6 +300,32 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_profile(fn, n=5):
+    """One torch.profiler trace of ``n`` calls: the device's busy ms per call
+    (the kernels' and copies' own device times summed; None when the trace
+    holds no device time), device ops per call, the five largest, and the
+    host's launch calls per call (kernel launches, copies, memsets and
+    graph launches: a replayed CUDA graph is one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = device_ops(prof)
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / n
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU and HOST_LAUNCH.match(e.key))
+    return dict(busy_ms=busy if busy > 0 else None,
+                kernels=sum(e.count for e in dev) / n,
+                host_launches=launches / n,
+                top=[(e.key[:60], round(e.self_device_time_total / 1e3 / n, 4)) for e in top])
 
 
 def vjp_plain_f32(depth, abm, g_hr, g_lr, need_depth):
@@ -1232,7 +1256,7 @@ def _replay_op_names(t):
         t._graph.replay()
         torch.cuda.synchronize()
     t._scan.k.zero_()
-    return {e.key for e in bench.device_ops(prof)}
+    return {e.key for e in device_ops(prof)}
 
 
 def _two_device_predictor(dev, stsr_ckpt, sr_dir):
@@ -2260,9 +2284,7 @@ def phase_captured_times(runs):
 
 
 BURN_IN_S = 3.0
-# the bench's measurements cut in rounds and calls (its batches kept)
-BENCH_PLAN = bench.Plan(rounds=1, iters=2, latency_calls=5, profile_calls=3, mtsr_rounds=1,
-                        mtsr_iters=2, train_steps=6, tpsf_rounds=1, tpsf_calls=10)
+BENCH_ROUNDS, BENCH_CALLS = 1, 10  # the bench's timed loop, cut
 BENCH_TPSF_BATCH = 8192
 BENCH_KEYS = {"metric", "value", "unit", "extras", "device"}
 
@@ -2285,52 +2307,25 @@ def phase_device(dev):
 
 
 def phase_bench(dev):
-    """``python -m tactilesr_torch.bench``'s runs at ``BENCH_PLAN``: the
-    default (STSR, with the MTSR and train extras), ``--seqs 7``,
-    ``--train`` and ``--tpsf --batch 8192`` at each precision.  Each record
-    goes through JSON as the CLI prints it and must carry its keys, a
-    positive value and an ``mfu`` in (0, 1.05), or for ``--tpsf`` a share of
-    the bound in (0, 1.05) with exactly its own kernel launched (counted
-    from 0 per precision: that path's launches)."""
-    out = {}
-    for key, run in (("default", lambda: bench.bench_serving(1, dev, BENCH_PLAN)),
-                     ("seqs7", lambda: bench.bench_serving(7, dev, BENCH_PLAN)),
-                     ("train", lambda: bench.bench_train(dev, BENCH_PLAN))):
-        rec = json.loads(json.dumps(run()))
-        check(BENCH_KEYS | {"mfu"} <= set(rec) and rec["value"] > 0, f"bench {key}: {rec}")
-        check(rec["mfu"] is not None and 0 < rec["mfu"] < 1.05, f"bench {key}: mfu {rec['mfu']}")
-        out[key] = rec
-        log(f"[bench] {key}: " + json.dumps(rec))
-    launches = {}
+    """``python -m tactilesr_torch.bench --batch 8192``'s run at each
+    precision, at ``BENCH_ROUNDS`` x ``BENCH_CALLS``.  Each record goes
+    through JSON as the CLI prints it and must carry its keys, a positive
+    value and a share of the bound in (0, 1.05), with exactly its own
+    kernel launched (counted from 0 per precision: that path's launches)."""
+    out, launches = {}, {}
     for prec, (name, _) in tcuda.FORWARD_KERNELS.items():
         tcuda.reset_launch_counts()
-        rec = json.loads(json.dumps(bench.bench_tpsf(BENCH_TPSF_BATCH, prec, dev, BENCH_PLAN)))
+        rec = json.loads(json.dumps(bench.bench_tpsf(BENCH_TPSF_BATCH, prec, dev, BENCH_ROUNDS,
+                                                     BENCH_CALLS)))
         counts = launches[f"bench_tpsf_{prec}"] = dict(tcuda.launch_counts)
-        want = 1 + BENCH_PLAN.tpsf_rounds * BENCH_PLAN.tpsf_calls  # the launch check, then the timed calls
+        want = 1 + BENCH_ROUNDS * BENCH_CALLS  # the launch check, then the timed calls
         check(counts[name] == want and sum(counts.values()) == want,
-              f"bench --tpsf --precision {prec}: launches {counts}, want {want} of {name} alone")
+              f"bench --precision {prec}: launches {counts}, want {want} of {name} alone")
         check(BENCH_KEYS <= set(rec) and rec["value"] > 0 and 0 < rec["extras"]["bound_share"] < 1.05,
-              f"bench --tpsf {prec}: {rec}")
+              f"bench --precision {prec}: {rec}")
         out[f"tpsf_{prec}"] = rec
         log(f"[bench] tpsf {prec}: " + json.dumps(rec))
     return out, launches
-
-
-def phase_bench_server():
-    """``python -m tactilesr_torch.scripts.bench_server --clients 16``: its
-    phases over HTTP, each with frames/s and dispatches, and the overload
-    phase's queue never above its bound, only 200/429/504 answers."""
-    args = bench_server.parse_args(["--clients", "16"])
-    res = bench_server.run(args)
-    for key, r in res.items():
-        if key.startswith(("sequential", "concurrent")):
-            check(r["frames_per_sec"] > 0 and r["dispatches"] > 0, f"bench_server {key}: {r}")
-    over = res["overload_bounded_queue"]
-    check(over["max_queue_depth_frames_observed"] <= args.max_queue_frames
-          and set(over["status_counts"]) <= {"200", "429", "504"} and over["connection_errors"] == 0,
-          f"bench_server overload: {over}")
-    log("[bench_server] " + json.dumps(res))
-    return res
 
 
 def phase_interchange(work, stsr_ckpt, sr_dir):
@@ -2364,7 +2359,7 @@ def phase_graft_entry(dev):
     ``BF16_REL`` of the output range of the same weights' f32 forward."""
     model, x = graft_entry.entry()
     check(x.is_cuda and next(model.parameters()).is_cuda, "entry() is not on the card")
-    ref = bench.flagship_model(dtype=torch.float32)
+    ref = graft_entry.flagship_model(dtype=torch.float32)
     ref.load_state_dict(model.state_dict())
     with torch.no_grad():
         out = model(x)
@@ -2478,7 +2473,6 @@ def main(argv=None):
             ("TactileSRCNN", cnn, cnn, 3 * cnn_flops_per_frame() * cnn.batch_size)])
         burn_tflops = phase("device", phase_device, dev)
         bench_recs, bench_launches = phase("bench", phase_bench, dev)
-        server_bench = phase("bench_server", phase_bench_server)
         n_interchanged = phase("interchange", phase_interchange, work, stsr_ckpt, sr_dir)
         entry_dev = phase("graft_entry", phase_graft_entry, dev)
     log(f"[times] SR epochs: STSR {stsr_sps:.1f} samples/s, MTSR {mtsr_sps:.1f} samples/s; "
@@ -2496,7 +2490,7 @@ def main(argv=None):
         f"{json.dumps({k: mtsr_served[k] for k in ('ms', 'measured_crossover')})}")
     log(f"[times] entries: burn-in {burn_tflops:.1f} TFLOP/s; bench "
         + json.dumps({k: r["value"] for k, r in bench_recs.items()})
-        + f"; bench_server coalescing x{server_bench['coalescing_speedup_1frame']:.2f}; interchange "
+        + "; interchange "
         f"{n_interchanged} tensors bit-equal; graft entry {json.dumps(entry_dev)}")
     smi = nvidia_smi_line()
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s: {phase.seconds}")

@@ -9,10 +9,7 @@ COMMANDS = [
     ("-m tactilesr_torch.data.generate", "synthetic raw blobs / SRdataset / SeqsDataset generation"),
     ("-m tactilesr_torch.serving", "batched SR inference from a checkpoint (+ --evaluate)"),
     ("-m tactilesr_torch.server", "micro-batched HTTP serving endpoint"),
-    ("-m tactilesr_torch.bench", "benchmark: serving forward, --seqs N, --train, --tpsf (one JSON line)"),
-    ("-m tactilesr_torch.scripts.bench_server", "load study of the HTTP server under concurrent clients"),
-    ("-m tactilesr_torch.scripts.profile_serving", "per-op device-time table of the serving forward"),
-    ("-m tactilesr_torch.scripts.profile_train", "per-op device-time table of the captured train step"),
+    ("-m tactilesr_torch.bench", "time a tPSF physics kernel against its plain version (one JSON line)"),
     ("-m tactilesr_torch.graft_entry", "data-parallel dry run of the recipes over --ranks N processes"),
     ("-m tactilesr_torch.compat.torch_convert", "port or reference .pth -> JAX .ckpt"),
     ("-m tactilesr_torch.compat.export_torch", "JAX .ckpt -> port (and reference-loadable) .pth"),

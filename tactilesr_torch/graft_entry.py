@@ -1,7 +1,7 @@
 """The root ``__graft_entry__.py``'s two entry points, for the port.
 
 ``entry(device="cuda")`` returns the flagship network's eval forward and its
-example input: a seeded full-width bf16 STSR (``bench.flagship_model``:
+example input: a seeded full-width bf16 STSR (``flagship_model``:
 scale 10, 6 MSRB, 1 ResBlock, weights from
 ``torch.Generator().manual_seed(0)``) as an ``nn.Module`` in
 eval mode, and a (32, 3, 4, 4) f32 batch drawn from
@@ -33,13 +33,22 @@ import tempfile
 import numpy as np
 import torch
 
-from .bench import flagship_model
 from .parallel.dist import rank_results, spawn_local_ranks
-from .runtime.device import resolve_device
+from .runtime.device import device_ops, resolve_device
 
 __all__ = ["entry", "dryrun_multichip"]
 
 RANK_TIMEOUT_S = 900
+
+
+def flagship_model(dtype=torch.float32):
+    """A seeded STSR at ``tactileSR_config``'s widths
+    (``torch.Generator().manual_seed(0)``), computing in ``dtype``."""
+    from .models.tactile_sr import TactileSR
+
+    return TactileSR(scale_factor=10, seqs_cnt=1, axis_cnt=3, pattern_feature_extra_layer_cnt=6,
+                     force_feature_extra_layer_cnt=1, dtype=dtype,
+                     generator=torch.Generator().manual_seed(0))
 
 
 def entry(device="cuda"):
@@ -168,8 +177,6 @@ def _replay_nccl_ops(trainer) -> list:
     ask).  The replay reads row 0 of the epoch and moves the model, which
     the run's checkpoints no longer need."""
     from torch.profiler import ProfilerActivity, profile
-
-    from .bench import device_ops
 
     trainer._scan.k.zero_()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -4,6 +4,8 @@ Entry points default to ``"cuda"``; a CUDA request on a machine with no
 usable GPU raises instead of quietly running on the CPU (a CPU run would
 be a different, much slower program).  Tests pass ``device="cpu"``.
 
+``device_ops`` picks a torch.profiler trace's device kernels.
+
 ``parse_device_memory``, ``select_device_with_most_free_memory`` and
 ``test_device`` are the port of ``tactilesr_tpu/runtime/device.py`` (itself
 the reference's ``utility/tools.py`` GPU tools: a memory scan that picks
@@ -19,6 +21,7 @@ from typing import List, Tuple
 import torch
 
 __all__ = [
+    "device_ops",
     "parse_device_memory",
     "resolve_device",
     "select_device_with_most_free_memory",
@@ -36,6 +39,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "False; pass device='cpu' to run the plain CPU path explicitly"
         )
     return dev
+
+
+def device_ops(prof):
+    """The device-side entries of a torch.profiler trace's ``key_averages``
+    (GPU-side user annotations, e.g. "Optimizer.step#Adam.step", span the
+    kernels inside them: counting them would count those kernels twice)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
 
 
 def parse_device_memory() -> List[dict]:

@@ -1,10 +1,9 @@
-"""The port's benchmark and entry points on the CPU: the bound helpers and
-FLOP counts moved into ``tactilesr_torch/bench.py`` (pinned to PERF.md's
-figures and to a forward-hook count), ``python -m tactilesr_torch.bench``
-at toy width with ``--device cpu`` (one JSON line, its keys), the refusals
-(``--tile``, ``--tpsf`` without a card, a wrapper that launched nothing),
-the profile scripts and ``bench_server`` at toy width, the flagship entry
-against JAX's ``__graft_entry__.entry()``, and the command index."""
+"""The physics bench and the entry points on the CPU: the bound helpers
+and FLOP counts of ``tactilesr_torch/bench.py`` (pinned to PERF.md's
+figures, to a forward-hook count and to perfbench's frozen copies), the
+bench's refusals (``--tile``, a run without a card, a wrapper that
+launched nothing), the flagship entry against JAX's
+``__graft_entry__.entry()``, and the command index."""
 
 import json
 import logging
@@ -24,12 +23,8 @@ from tactilesr_torch.__main__ import COMMANDS
 from tactilesr_torch.compat.from_jax import tactile_sr_state_dict
 from tactilesr_torch.models.tactile_sr import TactileSR, TactileSRCNN
 from tactilesr_torch.ops import cuda as tcuda
-from tactilesr_torch.scripts import bench_server, profile_serving, profile_train
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TOY = dict(scale_factor=2, pattern_layers=1, force_layers=1)
-TOY_PLAN = bench.Plan(rounds=1, iters=1, latency_calls=2, profile_calls=1, mtsr_rounds=1, mtsr_iters=1,
-                      train_steps=4, tpsf_rounds=1, tpsf_calls=1)
 
 
 @pytest.fixture(autouse=True)
@@ -56,17 +51,6 @@ def _restore_logger():
     lg.handlers[:] = handlers
     tlog._LOGGER_INITIALIZED.clear()
     tlog._LOGGER_INITIALIZED.update(inited)
-
-
-@pytest.fixture
-def toy(monkeypatch):
-    """The bench's network and batches cut to toy size."""
-    monkeypatch.setattr(bench, "FLAGSHIP", TOY)
-    monkeypatch.setattr(bench, "THROUGHPUT_BATCHES", {1: (2, 4), 7: (2,)})
-    monkeypatch.setattr(bench, "LATENCY_BATCHES", (1, 2))
-    monkeypatch.setattr(bench, "MTSR_BATCH", 2)
-    monkeypatch.setattr(bench, "TRAIN_BATCHES", (2, 4))
-    monkeypatch.setattr(bench, "TRAIN_EXTRA_BATCH", 2)
 
 
 # ------------------------------------------------------------- the helpers
@@ -119,51 +103,36 @@ def test_cnn_flops_per_frame_counts_the_convs():
                                                          torch.rand(1, 3, 4, 4))
 
 
+@pytest.mark.parametrize("name", ["stsr-x10", "mtsr7-x10"])
+def test_counts_equal_the_frozen_copies(name):
+    """perfbench's frozen FLOP count (``perfbench/workcount.py``, which every
+    roofline and ``mfu`` metric reads) equals the port's, hook-tested one
+    at each configuration file's widths."""
+    from perfbench import workcount
+
+    with open(os.path.join(ROOT, "perfbench", "configs", f"{name}.json")) as f:
+        c = json.load(f)
+    args = (c["scale_factor"], c["seqsCnt"], c["patternFeatureExtraLayerCnt"], c["forceFeatureExtraLayerCnt"])
+    assert bench.sr_flops_per_frame(*args) == workcount.sr_flops_per_frame(*args)
+    assert bench.sr_flops_per_frame(*args)[0] == workcount.config_flops_per_frame(c)
+
+
 # ------------------------------------------------------------- the bench
-def _line(capsys, argv):
-    assert bench.main(argv, plan=TOY_PLAN) == 0
-    out = capsys.readouterr().out.strip().splitlines()
-    assert len(out) == 1, out
-    return json.loads(out[0])
-
-
-def test_bench_default_on_cpu(toy, capsys):
-    rec = _line(capsys, ["--device", "cpu"])
-    assert {"metric", "value", "unit", "mfu", "device", "extras"} <= set(rec)
-    assert rec["metric"] == "sr_inference_throughput" and rec["unit"] == "frames/sec" and rec["value"] > 0
-    assert rec["mfu"] is None and rec["device"] == {"type": "cpu", "name": "cpu", "nvidia_smi": "not measured"}
-    ex = rec["extras"]
-    assert set(ex["frames_per_sec_by_batch"]) == {"2", "4"} and ex["batch"] in (2, 4)
-    assert ex["mtsr_frames_per_sec"] > 0 and ex["train_samples_per_sec"] > 0
-    assert set(ex["latency"]["end_to_end_ms_median"]) == {"B1", "B2"}
-    assert set(ex["latency"]["device_ms_per_call"].values()) == {"not measured"}
-    assert ex["gflop_per_frame"] == bench.sr_flops_per_frame(2, 1, 1, 1)[0] / 1e9
-
-
-def test_bench_seqs_and_train_on_cpu(toy, capsys):
-    rec = _line(capsys, ["--device", "cpu", "--seqs", "7"])
-    assert rec["metric"] == "mtsr_seqs7_inference_throughput" and "mtsr_frames_per_sec" not in rec["extras"]
-    assert set(rec["extras"]["frames_per_sec_by_batch"]) == {"2"}
-    rec = _line(capsys, ["--device", "cpu", "--train"])
-    assert rec["metric"] == "sr_train_throughput" and rec["unit"] == "samples/sec" and rec["mfu"] is None
-    runs = rec["extras"]["by_batch"]
-    assert set(runs) == {"2", "4"} and rec["value"] == max(r["samples_per_sec"] for r in runs.values())
-    assert not any(r["captured"] for r in runs.values())  # the CPU runs the step uncaptured
-
-
 def test_bench_refusals(capsys):
     with pytest.raises(SystemExit) as e:
-        bench.main(["--tpsf", "--tile", "8"])
+        bench.main(["--tile", "8"])
     assert e.value.code == 2 and "Pallas" in capsys.readouterr().err
     with pytest.raises(RuntimeError, match="needs the card"):
-        bench.bench_tpsf(4, "highest", "cpu", TOY_PLAN)
+        bench.bench_tpsf(4, "highest", "cpu")
+    with pytest.raises(RuntimeError, match="needs the card"):
+        bench.main(["--device", "cpu"])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="--device cpu"):
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             bench.main([])
 
 
 def test_require_launch(monkeypatch):
-    """The ``--tpsf`` guard: a call that launched the kernel passes, one that
+    """The bench's guard: a call that launched the kernel passes, one that
     ran the plain version raises."""
     name = "tpsf_physics_bf16"
     monkeypatch.setitem(tcuda.launch_counts, name, 0)
@@ -174,32 +143,6 @@ def test_require_launch(monkeypatch):
     bench.require_launch(name, launched)
     with pytest.raises(RuntimeError, match="was not launched"):
         bench.require_launch(name, lambda: None)
-
-
-def test_profile_scripts_on_cpu(toy, capsys):
-    assert profile_serving.main(["--device", "cpu", "--batch", "2", "--iters", "1", "--seqs", "7",
-                                 "--top", "3"]) == 0
-    out = capsys.readouterr().out
-    assert "seqs=7 batch=2 branch_mode=auto" in out and "not device" in out and "convolution" in out
-    assert profile_train.main(["--device", "cpu", "--batch", "2", "--steps", "4", "--top", "3"]) == 0
-    out = capsys.readouterr().out
-    assert "STSR train step at B=2 (uncaptured)" in out and "convolution_backward" in out
-
-
-def test_bench_server_on_cpu(toy, capsys):
-    """Every phase over loopback HTTP at toy width, the linger sweep among
-    them: frames served, and the overload phase's queue held at its bound."""
-    assert bench_server.main(["--device", "cpu", "--clients", "4", "--max-queue-frames", "64",
-                              "--sweep-linger"]) == 0
-    res = json.loads(capsys.readouterr().out)
-    assert set(res["linger_sweep"]) == {"0.5ms", "2.0ms", "5.0ms", "10.0ms"}
-    assert all(r["4x1frame"]["frames_per_sec"] > 0 for r in res["linger_sweep"].values())
-    for key in ("sequential_1client_1frame", "concurrent_4clients_1frame", "concurrent_1clients_8frames"):
-        assert res[key]["frames_per_sec"] > 0 and res[key]["dispatches"] > 0, key
-    assert res["sequential_1client_1frame"]["frames_per_dispatch"] == 1.0
-    over = res["overload_bounded_queue"]
-    assert over["max_queue_depth_frames_observed"] <= 64 and over["connection_errors"] == 0
-    assert set(over["status_counts"]) <= {"200", "429", "504"}
 
 
 # ------------------------------------------------------------- the entries
@@ -255,9 +198,7 @@ def test_command_index_lists_every_entry():
     assert set(mods) == {
         "tactilesr_torch.tasks.tpsf_task", "tactilesr_torch.tasks.sr_task",
         "tactilesr_torch.tasks.sr_seqs_task", "tactilesr_torch.data.generate", "tactilesr_torch.serving",
-        "tactilesr_torch.server", "tactilesr_torch.bench", "tactilesr_torch.scripts.bench_server",
-        "tactilesr_torch.scripts.profile_serving", "tactilesr_torch.scripts.profile_train",
-        "tactilesr_torch.compat.torch_convert", "tactilesr_torch.compat.export_torch",
+        "tactilesr_torch.server", "tactilesr_torch.bench", "tactilesr_torch.compat.torch_convert", "tactilesr_torch.compat.export_torch",
         "tactilesr_torch.graft_entry",
     }
     for m in mods:

@@ -44,3 +44,22 @@ def test_burn_in_on_the_cpu(monkeypatch, capsys):
     assert tflops > 0
     out = capsys.readouterr().out
     assert "burn-in on cpu:" in out and "matmuls of 32x32 bf16" in out
+
+
+def test_device_ops_keeps_device_kernels_only():
+    """``device_ops`` keeps a trace's CUDA entries and drops the host's and
+    the GPU-side user annotations, which span kernels already counted."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def entry(key, device_type, **kw):
+        return SimpleNamespace(key=key, device_type=device_type, **kw)
+
+    events = [entry("cudaLaunchKernel", DeviceType.CPU),
+              entry("aten::conv2d", DeviceType.CPU, is_user_annotation=False),
+              entry("sm90_xmma_fprop", DeviceType.CUDA),
+              entry("Optimizer.step#Adam.step", DeviceType.CUDA, is_user_annotation=True),
+              entry("Memcpy DtoH (Device -> Pinned)", DeviceType.CUDA, is_user_annotation=False)]
+    prof = SimpleNamespace(key_averages=lambda: events)
+    assert [e.key for e in tdev.device_ops(prof)] == ["sm90_xmma_fprop", "Memcpy DtoH (Device -> Pinned)"]
