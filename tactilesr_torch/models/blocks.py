@@ -1,4 +1,5 @@
-"""Residual feature blocks (NCHW), named as the reference's state_dict.
+"""Residual feature blocks (NCHW, or NHWC as their input), named as the
+reference's state_dict.
 
 - ``MSRB``: multi-scale residual block -- parallel 3x3 and 5x5 conv-BN-ReLU,
   concat, parallel 3x3 and 5x5 at 2n channels, concat to 4n, 1x1

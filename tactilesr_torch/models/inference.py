@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.resize import resize_bilinear_nchw, upsample_bilinear
+from .layers import memory_format
 
 __all__ = ["BRANCH_MODES", "fold_inference_params", "fold_inference_params_cnn",
            "resolve_branch_mode", "tactile_sr_infer", "tactile_sr_cnn_infer"]
@@ -239,18 +240,11 @@ def fold_inference_params_cnn(
     return _placed(out, dtype, device)
 
 
-def _layout(device) -> torch.memory_format:
-    """The activations' and kernels' layout: NHWC on CUDA, where cuDNN runs
-    epilogues only on NHWC tensors; elsewhere NCHW, which keeps the CPU's
-    f32 convolutions in the sum order the JAX parity tests were set on."""
-    return torch.channels_last if torch.device(device).type == "cuda" else torch.contiguous_format
-
-
 def _placed(out: dict, dtype: torch.dtype, device) -> dict:
-    """Kernels (``.../k*``) in ``dtype`` and :func:`_layout`, biases in f32,
-    on ``device``."""
+    """Kernels (``.../k*``) in ``dtype`` and :func:`~.layers.memory_format`,
+    biases in f32, on ``device``."""
     return {
-        k: v.to(device, dtype).contiguous(memory_format=_layout(device))
+        k: v.to(device, dtype).contiguous(memory_format=memory_format(device))
         if k.rsplit("/", 1)[-1].startswith("k") else v.to(device, torch.float32).contiguous()
         for k, v in out.items()
     }
@@ -267,8 +261,9 @@ def _fusable(x: torch.Tensor) -> bool:
 def _conv(x, kernel, bias=None, *, z=None, relu: bool = False, pad: int, groups: int = 1,
           counts: dict | None = None):
     """``relu(conv(x, kernel) + z + bias)``, each of ``z``, ``bias`` and the
-    ReLU optional, in :func:`_layout`: one cuDNN call where :func:`_fusable`,
-    else the convolution, then the adds and the ReLU in that order.
+    ReLU optional, in :func:`~.layers.memory_format`: one cuDNN call where
+    :func:`_fusable`, else the convolution, then the adds and the ReLU in
+    that order.
 
     The fused call reads the bias in the compute dtype: with an f32 bias
     cuDNN has only engines it compiles at run time, 0.5-3.5 s a signature.
@@ -301,8 +296,9 @@ def _conv(x, kernel, bias=None, *, z=None, relu: bool = False, pad: int, groups:
 
 
 def _upsampled(x: torch.Tensor, scale_factor: int, dtype: torch.dtype) -> torch.Tensor:
-    """The upsampled readings in the compute dtype and :func:`_layout`."""
-    return upsample_bilinear(x, scale_factor).to(dtype, memory_format=_layout(x.device))
+    """The upsampled readings in the compute dtype and
+    :func:`~.layers.memory_format`."""
+    return upsample_bilinear(x, scale_factor).to(dtype, memory_format=memory_format(x.device))
 
 
 def _msrb_infer(folded: dict, pre: str, x, conv):

@@ -7,9 +7,20 @@ U(-1/sqrt(fan_in), 1/sqrt(fan_in)); tPSFNet's Linear weights (the JAX
 package's ``Dense``) are N(0, 0.03).
 
 Parameters stay f32.  ``Conv`` computes in its input's dtype (weights cast
-at the call) and ``BatchNorm`` normalizes in f32 and casts back, so a bf16
-activation stream matches the JAX modules' ``dtype`` rule.  Every
-initializer draws from an explicit ``torch.Generator``.
+at the call) and ``BatchNorm`` normalizes in f32 and rounds once to the
+input's dtype, so a bf16 activation stream matches the JAX modules'
+``dtype`` rule.  Every initializer draws from an explicit
+``torch.Generator``.
+
+Layout: :func:`memory_format` is NHWC (channels-last) on CUDA, where
+cuDNN's bf16 convolutions run on NHWC tensors, and NCHW elsewhere.  ``Conv`` follows its input and weight (a channels-last weight
+gives a channels-last output).  ``BatchNorm`` takes a channels-last input
+straight to ``nn.BatchNorm2d``'s kernels, which compute in f32 and write
+the input's dtype and layout; an NCHW input goes through an f32 copy, the
+path the JAX parity tests were set on.  Each call bumps ``layer_counts``
+(registered with ``ops/graph.py``, so graph replays count too):
+``sr_conv`` and ``sr_bn`` every call, ``sr_conv_nhwc`` where a conv's input
+arrives channels-last, ``sr_bn_nhwc`` where a BatchNorm takes the NHWC path.
 """
 
 from __future__ import annotations
@@ -21,24 +32,51 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.graph import register_counters
+
 __all__ = ["Conv", "BatchNorm", "kaiming_normal_fan_out_", "non_negative_kaiming_fan_out_",
-           "init_weights_"]
+           "init_weights_", "layer_counts", "memory_format"]
+
+layer_counts = {"sr_conv": 0, "sr_conv_nhwc": 0, "sr_bn": 0, "sr_bn_nhwc": 0}
+register_counters(layer_counts)
+
+
+def memory_format(device) -> torch.memory_format:
+    """The activations' and kernels' layout: NHWC on CUDA, where cuDNN runs
+    its bf16 convolutions and their epilogues on NHWC tensors (NCHW ones it
+    transposes in and out); elsewhere NCHW, which keeps the CPU's f32
+    convolutions in the sum order the JAX parity tests were set on."""
+    return torch.channels_last if torch.device(device).type == "cuda" else torch.contiguous_format
+
+
+def _channels_last(x: torch.Tensor) -> bool:
+    """Strided as NHWC and not also as NCHW (a tensor with one channel or
+    one pixel is both, and keeps the NCHW path)."""
+    return x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous()
 
 
 class Conv(nn.Conv2d):
-    """Square-kernel, stride-1 conv (NCHW) computing in the input's dtype."""
+    """Square-kernel, stride-1 conv computing in the input's dtype."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, padding: int = 1,
                  bias: bool = True):
         super().__init__(in_ch, out_ch, kernel_size, padding=padding, bias=bias)
 
     def forward(self, x):
+        layer_counts["sr_conv"] += 1
+        layer_counts["sr_conv_nhwc"] += _channels_last(x)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), b, padding=self.padding)
 
 
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d (momentum 0.1, eps 1e-5) normalizing in f32.
+
+    A channels-last input goes to ``nn.BatchNorm2d``'s own kernels as it is
+    (on CUDA PyTorch's channels-last ones for a bf16 input, which take the
+    statistics and normalize in f32 with the f32 parameters and write bf16
+    once, as the f32 copy's cast did); any other goes through an f32 copy
+    and is cast back.
 
     ``sync`` is set by the trainer on a data-parallel mesh of more than one
     rank (each rank a block of the global batch).  Then, in train mode, the
@@ -54,8 +92,12 @@ class BatchNorm(nn.BatchNorm2d):
     sync = False
 
     def forward(self, x):
+        layer_counts["sr_bn"] += 1
         if self.training and self.sync:
             return self._global_batch_forward(x)
+        if _channels_last(x):
+            layer_counts["sr_bn_nhwc"] += 1
+            return super().forward(x)
         return super().forward(x.float()).to(x.dtype)
 
     def _global_batch_forward(self, x):

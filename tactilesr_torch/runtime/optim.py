@@ -84,9 +84,18 @@ class AdamL2:
         return sd
 
     def load_state_dict(self, state: dict) -> None:
-        """Load a state; a capturable optimizer stays capturable (with new
-        lr and state tensors, so a captured step must be captured again)."""
+        """Load a state, each moment in its parameter's layout (a state
+        saved from NCHW parameters resumes channels-last ones, and the
+        other way: torch's foreach kernels take their fast path only where
+        a parameter and its moments share strides); a capturable optimizer
+        stays capturable (with new lr and state tensors, so a captured step
+        must be captured again)."""
         self.optimizer.load_state_dict(state)
+        for p in self.params:
+            st = self.optimizer.state.get(p, {})
+            for k, v in st.items():
+                if torch.is_tensor(v) and v.shape == p.shape and v.stride() != p.stride():
+                    st[k] = torch.empty_like(p, dtype=v.dtype).copy_(v)
         if self.capturable:
             self.make_capturable()
 

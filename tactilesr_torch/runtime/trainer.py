@@ -48,6 +48,13 @@ its eager and captured steps, ``launches``: what each counter registered
 with ``ops/graph.py::register_counters`` gained over the steps, replays
 included (the physics kernels' launches, for a tPSFNet).
 
+On CUDA the model's 4-D parameters are channels-last (``models/layers.py``
+``memory_format``), so the SR networks' activations stay NHWC from conv to
+BatchNorm to conv; Adam's state follows its parameters' layout (a resume
+converts it, ``runtime/optim.py``).  Checkpoints, ``state_digest`` and the
+gradient ``all_reduce`` read tensors in logical order, whatever their
+layout.
+
 ``remat`` runs the forward and loss under activation checkpointing; the
 recompute's second BatchNorm update is undone, so the running statistics
 and counters are those of one forward, as ``jax.checkpoint`` leaves them.
@@ -83,7 +90,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.layers import BatchNorm
+from ..models.layers import BatchNorm, memory_format
 from ..ops.graph import CapturedGraph, counter_totals
 from ..parallel.dist import get_rank, get_world_size, is_main_process
 from ..parallel.mesh import shard_batch_size
@@ -182,7 +189,9 @@ class Trainer:
                     f"device per process: got {mesh} in a world of {get_world_size()}")
         self.mesh = mesh
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        # channels-last on CUDA: each conv and BatchNorm then reads and writes
+        # NHWC activations, with no transpose around cuDNN's NHWC kernels
+        self.model = model.to(self.device, memory_format=memory_format(self.device))
         for m in model.modules():  # global-batch statistics across the ranks
             if isinstance(m, BatchNorm):
                 m.sync = mesh is not None and mesh.size > 1
