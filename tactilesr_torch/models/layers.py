@@ -20,7 +20,9 @@ the input's dtype and layout; an NCHW input goes through an f32 copy, the
 path the JAX parity tests were set on.  Each call bumps ``layer_counts``
 (registered with ``ops/graph.py``, so graph replays count too):
 ``sr_conv`` and ``sr_bn`` every call, ``sr_conv_nhwc`` where a conv's input
-arrives channels-last, ``sr_bn_nhwc`` where a BatchNorm takes the NHWC path.
+arrives channels-last, ``sr_bn_nhwc`` where a BatchNorm takes the NHWC path;
+``sr_branch_conv`` and ``sr_branch_conv_nhwc`` the same two for the convs
+built with ``branch=True`` (the MTSR's per-reading pattern branches).
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from ..ops.graph import register_counters
 __all__ = ["Conv", "BatchNorm", "kaiming_normal_fan_out_", "non_negative_kaiming_fan_out_",
            "init_weights_", "layer_counts", "memory_format"]
 
-layer_counts = {"sr_conv": 0, "sr_conv_nhwc": 0, "sr_bn": 0, "sr_bn_nhwc": 0}
+layer_counts = {"sr_conv": 0, "sr_conv_nhwc": 0, "sr_bn": 0, "sr_bn_nhwc": 0,
+                "sr_branch_conv": 0, "sr_branch_conv_nhwc": 0}
 register_counters(layer_counts)
 
 
@@ -56,15 +59,21 @@ def _channels_last(x: torch.Tensor) -> bool:
 
 
 class Conv(nn.Conv2d):
-    """Square-kernel, stride-1 conv computing in the input's dtype."""
+    """Square-kernel, stride-1 conv computing in the input's dtype;
+    ``branch`` adds its calls to the ``sr_branch_conv`` counts too."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, padding: int = 1,
-                 bias: bool = True):
+                 bias: bool = True, branch: bool = False):
         super().__init__(in_ch, out_ch, kernel_size, padding=padding, bias=bias)
+        self.branch = branch
 
     def forward(self, x):
+        nhwc = _channels_last(x)
         layer_counts["sr_conv"] += 1
-        layer_counts["sr_conv_nhwc"] += _channels_last(x)
+        layer_counts["sr_conv_nhwc"] += nhwc
+        if self.branch:
+            layer_counts["sr_branch_conv"] += 1
+            layer_counts["sr_branch_conv_nhwc"] += nhwc
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), b, padding=self.padding)
 

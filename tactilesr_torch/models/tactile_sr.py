@@ -85,8 +85,8 @@ class TactileSR(nn.Module):
         self.inputLayer_pattern_list = nn.ModuleList(
             nn.Sequential(
                 Upsample(scale_factor),
-                Conv(axis_cnt, 64, 3, bias=False), BatchNorm(64), nn.ReLU(),
-                Conv(64, 64, 3, bias=False), BatchNorm(64), nn.ReLU(),
+                Conv(axis_cnt, 64, 3, bias=False, branch=True), BatchNorm(64), nn.ReLU(),
+                Conv(64, 64, 3, bias=False, branch=True), BatchNorm(64), nn.ReLU(),
             )
             for _ in range(seqs_cnt)
         )

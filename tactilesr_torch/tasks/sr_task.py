@@ -52,6 +52,7 @@ from ..runtime.trainer import Trainer, masked_mse
 __all__ = [
     "SRTrainer",
     "build_model",
+    "build_trainer",
     "prepare_sr_labels",
     "build_eval_fn",
     "InferenceHookSR",
@@ -380,34 +381,23 @@ def transfer_trunk_params(seqs_state: dict, single_bundle: dict) -> dict:
     return out
 
 
-def main(config=None, seqs: bool = False, mesh=None, max_epochs: Optional[int] = None,
-         auto_resume: bool = False, hooks: Sequence[HookBase] = ()) -> SRTrainer:
-    """Train the SR network of ``config`` (STSR, or TactileSRCNN with
-    ``model_arch``; ``seqs=True`` trains the MTSR on the SeqsDataset with
-    the trunk transfer).  The process joins its launch's process group
-    (``parallel.init_distributed``) and, with ``mesh`` None, trains over
-    the mesh of the config's ``data_parallel``.  ``auto_resume`` continues
-    from ``latest.pth`` in the work dir; ``hooks`` are registered beside the
-    recipe's own."""
-    config = dict(config or (tactileSeqs_config if seqs else tactileSR_config))
-    dist.init_distributed(device=config.get("device", "cuda"))
-    setup_logger("tactilesr_torch", process_index=dist.get_rank())
+def build_trainer(config, model, train_arrays: Dict[str, np.ndarray], *, seqs: bool, mesh=None,
+                  max_epochs: Optional[int] = None) -> SRTrainer:
+    """The recipe's trainer of ``model`` over ``train_arrays`` (``LR`` and
+    ``HR`` rows) on the config's ``device``.  With ``seqs`` (the MTSR) the
+    trunk is first warm-started from the STSR bundle at
+    ``load_checkpoint_dir`` (``transfer_trunk_params``; a missing file
+    warns and trains from scratch) and the warm-up is off unless
+    ``seqs_use_warmup``, as the reference's seqs entry wires none.  The
+    StepLR schedule runs by epoch over ``ceil(N / train_batch_size)``
+    steps; ``adam_l2`` with ``weight_decay`` and ``clip_grad_norm``;
+    ``max_epochs`` or ``epochs``, ``scan_epochs``, ``remat``,
+    ``grad_accum``, checkpoints into ``save_dir``; no hook beyond the
+    trainer's defaults.  ``mesh`` None trains on this process's device
+    alone."""
     dev = resolve_device(config.get("device", "cuda"))
-    set_random_seed(config["random_seed"], config["deterministic"])
-    apply_matmul_precision(config)
-    if mesh is None:
-        mesh = resolve_mesh_from_config(config)
-    model = build_model(config)
-
-    ds_cls = TactileSRDatasetSeq if seqs else TactileSRDataset
-    lr_train, hr_train = ds_cls(config["train_dataset_dir"]).stacked()
-    lr_test, hr_test = ds_cls(config["test_dataset_dir"]).stacked()
-    logger.info("train dataset size: %d", lr_train.shape[0])
-    logger.info("test dataset size: %d", lr_test.shape[0])
-
-    cnn = config.get("model_arch", "TactileSR") == "TactileSRCNN"
     if seqs:
-        if cnn:
+        if config.get("model_arch", "TactileSR") == "TactileSRCNN":
             raise ValueError("the MTSR trunk transfer is TactileSR's; model_arch=TactileSRCNN has "
                              "no pattern or force trunk")
         src = config.get("load_checkpoint_dir")
@@ -422,19 +412,19 @@ def main(config=None, seqs: bool = False, mesh=None, max_epochs: Optional[int] =
     lr_schedule = LRWarmupSchedule(
         StepLR(config["lr"], config["lr_scheduler_step_size"], config["lr_scheduler_gamma"]),
         by_epoch=True,
-        epoch_len=-(-lr_train.shape[0] // config["train_batch_size"]),
+        epoch_len=-(-train_arrays["LR"].shape[0] // config["train_batch_size"]),
         warmup_t=config.get("warmup_t", 0) if use_warmup else 0,
         warmup_mode=config.get("warmup_mode", "fix"),
         warmup_init_lr=config.get("warmup_init_lr"),
         warmup_factor=config.get("warmup_factor"),
     )
-    trainer = SRTrainer(
+    return SRTrainer(
         config=config,
         model=model,
         optimizer=adam_l2(model.parameters(), weight_decay=config["weight_decay"],
                           clip_grad_norm=config.get("clip_grad_norm", 0.0)),
         lr_schedule=lr_schedule,
-        train_arrays={"LR": lr_train, "HR": hr_train},
+        train_arrays=train_arrays,
         batch_size=config["train_batch_size"],
         max_epochs=max_epochs or config["epochs"],
         work_dir=config["save_dir"],
@@ -446,6 +436,35 @@ def main(config=None, seqs: bool = False, mesh=None, max_epochs: Optional[int] =
         device=dev,
         mesh=mesh,
     )
+
+
+def main(config=None, seqs: bool = False, mesh=None, max_epochs: Optional[int] = None,
+         auto_resume: bool = False, hooks: Sequence[HookBase] = ()) -> SRTrainer:
+    """Train the SR network of ``config`` (STSR, or TactileSRCNN with
+    ``model_arch``; ``seqs=True`` trains the MTSR on the SeqsDataset with
+    the trunk transfer).  The process joins its launch's process group
+    (``parallel.init_distributed``) and, with ``mesh`` None, trains over
+    the mesh of the config's ``data_parallel``.  ``auto_resume`` continues
+    from ``latest.pth`` in the work dir; ``hooks`` are registered beside the
+    recipe's own."""
+    config = dict(config or (tactileSeqs_config if seqs else tactileSR_config))
+    dist.init_distributed(device=config.get("device", "cuda"))
+    setup_logger("tactilesr_torch", process_index=dist.get_rank())
+    set_random_seed(config["random_seed"], config["deterministic"])
+    apply_matmul_precision(config)
+    if mesh is None:
+        mesh = resolve_mesh_from_config(config)
+    model = build_model(config)
+
+    ds_cls = TactileSRDatasetSeq if seqs else TactileSRDataset
+    lr_train, hr_train = ds_cls(config["train_dataset_dir"]).stacked()
+    lr_test, hr_test = ds_cls(config["test_dataset_dir"]).stacked()
+    logger.info("train dataset size: %d", lr_train.shape[0])
+    logger.info("test dataset size: %d", lr_test.shape[0])
+
+    trainer = build_trainer(config, model, {"LR": lr_train, "HR": hr_train}, seqs=seqs, mesh=mesh,
+                            max_epochs=max_epochs)
+    cnn = config.get("model_arch", "TactileSR") == "TactileSRCNN"
     test_arrays = {"LR": lr_test, "HR": hr_test}
     trainer.register_hooks([EvalHook(1, build_eval_fn(trainer, test_arrays))])
     if config.get("dead_head_check", True) and dist.is_main_process():
