@@ -16,6 +16,14 @@ Phases (any failure exits non-zero and prints no result line):
                  B, with LR and HR cotangents, for abm and depth (rtol 1e-3,
                  atol 1e-6), and with the LR cotangent alone for abm (the
                  training call)
+   adam       -- the optimizer kernel (``ops/cuda/adam_kernel.cu``): its
+                 build (no spill), then at the STSR's, MTSR's and tPSFNet's
+                 parameter sets 3 steps against torch's capturable foreach
+                 Adam (within 2 ulps) and the plain version (1e-6), and a
+                 step's ms (steps captured in a graph, CUDA events) of the
+                 kernel, torch's foreach and ``fused=True`` Adam and the plain
+                 version, with ``exp_avg_sq`` normal and >= 98% denormal,
+                 beside the bound (28 B a parameter at 3.35 TB/s)
    kernel_precision -- the bf16 forward kernels (``physics_precision``
                  default: one tensor-core pass; high: three) vs the plain
                  version of their precision at the same B, within 1e-3 of the
@@ -34,8 +42,9 @@ Phases (any failure exits non-zero and prints no result line):
                  through the plain physics at B=256 (rtol 1e-3, atol 1e-6)
    training_captured -- the same recipe with ``--scan_epochs true``: each
                  step after the warm-up a replay of one CUDA graph that holds
-                 both physics kernels; the backward kernel must count one
-                 launch per step (58) and each forward wrapper at least one;
+                 both physics kernels and the optimizer kernel; the backward
+                 kernel and the optimizer kernel must count one launch per
+                 step (58) and each forward wrapper at least one;
                  losses against an eager run with capturable Adam at rtol
                  1e-4 (one arithmetic), and against the eager run at rtol
                  4e-3 (its host-side Adam rounds otherwise: 1.36e-3
@@ -89,7 +98,8 @@ Phases (any failure exits non-zero and prints no result line):
                  state by ``_state_deviation``) and against the eager loop
                  (losses rtol 1e-4);
                  then the STSR recipe with ``--scan_epochs true`` for 2
-                 epochs, with the sr phase's checks
+                 epochs, with the sr phase's checks and one optimizer
+                 kernel launch a step (one a replay)
    remat      -- 4 f32 steps with ``remat`` against without, eager and
                  captured (3 warm-up steps, then a replay): BN statistics and
                  counters equal, losses rtol 1e-5
@@ -1464,19 +1474,24 @@ def phase_sr_captured(work, dev, sr_dir):
 
     clock, start = EpochClock(), StartState()
     t0 = time.perf_counter()
+    tcuda.reset_launch_counts()
     trainer = sr_task._cli(_sr_argv(os.path.join(work, "stsr_captured"), sr_dir, SR_EPOCHS,
                                     "--scan_epochs", "true"), hooks=[clock, start])
     torch.cuda.synchronize()
+    launches = dict(tcuda.launch_counts)
     wall = time.perf_counter() - t0
     check(trainer.scan_epochs and trainer._graph is not None, "the STSR recipe captured no graph")
+    check(trainer._graph.per_replay.get("adam_l2") == 1 and launches["adam_l2"] == trainer.step,
+          f"the optimizer kernel launched {launches['adam_l2']} times in {trainer.step} captured "
+          f"STSR steps ({trainer._graph.per_replay.get('adam_l2')} per replay)")
     check(trainer.model.dtype == torch.bfloat16, "the STSR does not compute in bf16")
     _check_sr_run("sr_captured", trainer, start.state, SR_EPOCHS * trainer.epoch_len)
     sps = trainer.n_train / clock.seconds[-1]
     log(f"[sr_captured] STSR recipe, --scan_epochs true: {SR_EPOCHS} epochs x {trainer.epoch_len} "
         f"steps in {wall:.2f} s (entry wall clock); epoch seconds {clock.seconds}; the last: "
         f"{sps:.1f} samples/s (host clock, card synced at both ends, eval and checkpoint included)")
-    return trainer, dict(loss_rel=rel, loss_rel_capturable=rel_same, state=dev,
-                         epoch_samples_per_s=sps)
+    return trainer, launches, dict(loss_rel=rel, loss_rel_capturable=rel_same, state=dev,
+                                   epoch_samples_per_s=sps)
 
 
 def phase_training_captured(work, raw, eager):
@@ -1501,6 +1516,9 @@ def phase_training_captured(work, raw, eager):
           f"the stage-1 graph records {trainer._graph and trainer._graph.per_replay} kernel launches")
     check(launches["tpsf_physics_bwd"] == steps,
           f"tpsf_physics_bwd launched {launches['tpsf_physics_bwd']} times in {steps} captured steps")
+    check(trainer._graph.per_replay.get("adam_l2") == 1 and launches["adam_l2"] == steps,
+          f"the optimizer kernel launched {launches['adam_l2']} times in {steps} captured steps "
+          f"({trainer._graph.per_replay.get('adam_l2')} per replay)")
     for name in ("tpsf_physics", "tpsf_physics_fused"):
         check(launches[name] >= steps, f"{name} launched {launches[name]} times in {steps} steps")
     got, want = _losses(trainer), _losses(eager)
@@ -2283,6 +2301,176 @@ def phase_captured_times(runs):
     return out
 
 
+# the optimizer kernel's parameter sets: (name, the recipe's config); each
+# step timed as a run of ADAM_REPS steps captured in one CUDA graph, so that
+# the host's enqueue is not timed
+ADAM_SETS = (("STSR", dict(tactileSR_config)), ("MTSR", dict(tactileSR_config, seqsCnt=7)),
+             ("tPSFNet", tPSFNet_config))
+ADAM_REPS, ADAM_REPLAYS = 20, 10
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+DENORMAL = 1.1754944e-38  # f32's least normal
+
+
+def _adam_params(name, cfg, dev):
+    """A recipe's trainable parameters on ``dev``, 4-D ones channels-last,
+    as the trainer lays them out."""
+    model = tpsf_task.build_model(cfg) if name == "tPSFNet" else sr_task.build_model(cfg)
+    out = []
+    for p in model.parameters():
+        if p.requires_grad:
+            x = p.detach().to(dev)
+            out.append(torch.nn.Parameter(x.contiguous(memory_format=torch.channels_last)
+                                          if x.ndim == 4 else x))
+    return out
+
+
+def _graph_ms(step):
+    """ms of one ``step`` on the device: ADAM_REPS steps captured in one
+    graph (after one eager step), its replays timed with CUDA events."""
+    from tactilesr_torch.ops.graph import CapturedGraph
+
+    step()
+    torch.cuda.synchronize()
+    graph = CapturedGraph()
+    with graph.capture():
+        for _ in range(ADAM_REPS):
+            step()
+    return cuda_ms(graph.replay, ADAM_REPLAYS, warmup=1) / ADAM_REPS
+
+
+def phase_adam(dev):
+    """The optimizer kernel (``ops/cuda/adam_kernel.cu``): its build
+    (registers, spills, blocks per SM; no spill), then at each recipe's
+    parameter set (the STSR's 124 tensors, the MTSR's 160, the tPSFNet's 8)
+    three steps of the kernel (through ``AdamL2`` made capturable), of
+    torch's capturable foreach Adam (the path it replaced) and of the plain
+    version, from one start at the recipe's weight decay: the kernel within
+    2 ulps of torch's and within 1e-6 of the plain version's parameters;
+    then a step's ms of each, and of torch's ``fused=True`` Adam (the
+    library's), with the state normal (g ~ 1e-3) and with ``exp_avg_sq``
+    at least 98% denormal (g = 0, weight decay 0 in both), beside the
+    bound: 28 bytes a parameter at 3.35 TB/s."""
+    from tactilesr_torch.ops.cuda import adam
+
+    t0 = time.perf_counter()
+    adam.build()
+    ptxas = tcuda.ptxas_info(adam.build_log, adam.KERNELS)
+    info = adam.kernel_info()
+    log(f"[adam] adam_kernel.cu built and loaded in {time.perf_counter() - t0:.2f} s")
+    for name, k in info.items():
+        p = ptxas.get(name)
+        check(p is not None, f"ptxas reported nothing for {name}: {ptxas}")
+        log(f"[adam] {name}: {k['threads']} threads, {p['registers']} registers, spill stores/loads "
+            f"{p['spill_stores']}/{p['spill_loads']} B, {p['static_smem']} B static shared, "
+            f"{k['blocks_per_sm']} resident blocks per SM")
+        check(p["spill_stores"] == 0 and p["spill_loads"] == 0 and k["local_bytes"] == 0,
+              f"{name} spills: ptxas {p}, runtime {k}")
+    out = {"info": info}
+    for name, cfg in ADAM_SETS:
+        params = _adam_params(name, cfg, dev)
+        n = sum(p.numel() for p in params)
+        wd = cfg["weight_decay"]
+
+        def copies():
+            return [torch.nn.Parameter(p.detach().clone(memory_format=torch.preserve_format))
+                    for p in params]
+
+        ours, ref, plain, lib = copies(), copies(), copies(), copies()
+        opt = adam_l2(ours, weight_decay=wd)
+        opt.make_capturable()
+        lr = torch.tensor(1e-4, device=dev)
+        foreach = torch.optim.Adam(ref, lr=lr.clone(), weight_decay=wd, capturable=True, foreach=True)
+        fused = torch.optim.Adam(lib, lr=lr.clone(), weight_decay=wd, capturable=True, fused=True)
+        m, v = [torch.zeros_like(p) for p in plain], [torch.zeros_like(p) for p in plain]
+        steps = [torch.zeros((), device=dev) for _ in plain]
+        gen = torch.Generator(device=dev).manual_seed(24)
+        grads = [torch.randn(p.shape, generator=gen, device=dev).mul_(1e-3).contiguous(
+            memory_format=torch.channels_last if p.ndim == 4 else torch.contiguous_format) for p in params]
+        for group in (ours, ref, lib):
+            for p, g in zip(group, grads):
+                p.grad = g.clone(memory_format=torch.preserve_format)
+        for k in range(3):
+            lr.fill_(1e-4 * (1 + k))
+            for o in (foreach, fused):
+                o.param_groups[0]["lr"].fill_(1e-4 * (1 + k))
+            opt.step(lr)
+            foreach.step()
+            fused.step()
+            adam.adam_l2_plain([p.data for p in plain], grads, m, v, steps, lr, b1=0.9, b2=0.999,
+                               eps=1e-8, weight_decay=wd)
+        torch.cuda.synchronize()
+
+        def ulps(a, b):
+            def ordered(x):
+                i = x.contiguous().view(torch.int32).long()
+                return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+            return int((ordered(a) - ordered(b)).abs().max())
+
+        st = [opt.optimizer.state[p] for p in ours]
+        ts = [foreach.state[q] for q in ref]
+        vs_torch = max(max(ulps(a.data, b.data), ulps(s["exp_avg"], t["exp_avg"]),
+                           ulps(s["exp_avg_sq"], t["exp_avg_sq"])) for a, b, s, t in zip(ours, ref, st, ts))
+        vs_plain = max(float((a.data - b.data).abs().max()) for a, b in zip(ours, plain))
+        vs_fused = max(float((a.data - b.data).abs().max()) for a, b in zip(ours, lib))
+        check(all(float(s["step"]) == float(t["step"]) == 3 for s, t in zip(st, ts)),
+              f"{name}: step counters {[float(s['step']) for s in st][:4]}")
+        check(vs_torch <= 2 and vs_plain <= 1e-6,
+              f"{name}: kernel vs torch capturable Adam {vs_torch} ulps, vs plain {vs_plain:.3e}")
+        row = dict(tensors=len(params), params=n, bound_ms=28 * n / HBM_BYTES_PER_S * 1e3,
+                   ulps_vs_torch=vs_torch, max_abs_vs_plain=vs_plain, max_abs_vs_fused=vs_fused)
+        # timing: weight decay 0 (else g' = wd p keeps exp_avg_sq normal), lr 1e-4
+        for o in (opt, foreach, fused):
+            o_groups = o.optimizer.param_groups if o is opt else o.param_groups
+            for group in o_groups:
+                group["weight_decay"] = 0.0
+        runs = {
+            "kernel": lambda: opt.step(lr),
+            "torch_foreach": foreach.step,
+            "library_fused": fused.step,
+            "plain": lambda: adam.adam_l2_plain([p.data for p in plain], grads, m, v, steps, lr,
+                                                b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0),
+        }
+        states = {"kernel": st, "torch_foreach": ts, "library_fused": [fused.state[q] for q in lib],
+                  "plain": [{"exp_avg": a, "exp_avg_sq": b} for a, b in zip(m, v)]}
+        for regime in ("normal", "denormal"):
+            if regime == "denormal":
+                for g in grads:
+                    g.zero_()
+                for group in (ours, ref, lib):
+                    for p in group:
+                        p.grad.zero_()
+                for key, sts in states.items():
+                    for s in sts:
+                        x = s["exp_avg_sq"]
+                        r = (torch.rand(x.shape, generator=gen, device=dev) + 0.01) * 1e-39
+                        r.view(-1)[::100] = 1e-6  # 1% normal
+                        x.copy_(r)
+                        s["exp_avg"].copy_((torch.rand(x.shape, generator=gen, device=dev) - 0.5) * 1e-41)
+            for key, fn in runs.items():
+                if regime == "denormal" and key == "plain":
+                    continue
+                ms = _graph_ms(fn)
+                share = sum(float((s["exp_avg_sq"] < DENORMAL).sum()) for s in states[key]) / n
+                row[f"{key}_ms_{regime}"] = ms
+                row[f"{key}_denormal_share_{regime}"] = share
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms_normal"]
+        for regime in ("normal", "denormal"):
+            check(row[f"kernel_denormal_share_{regime}"] >= 0.98 if regime == "denormal"
+                  else row[f"kernel_denormal_share_{regime}"] < 0.01,
+                  f"{name} {regime}: exp_avg_sq {row[f'kernel_denormal_share_{regime}']:.4f} denormal")
+        log(f"[adam] {name}: {len(params)} tensors, {n} parameters, bound {row['bound_ms']:.4f} ms "
+            f"(28 B a parameter at 3.35 TB/s); kernel {row['kernel_ms_normal']:.4f} ms "
+            f"({row['bound_share'] * 100:.1f}% of the bound), with {row['kernel_denormal_share_denormal'] * 100:.2f}% "
+            f"denormal exp_avg_sq {row['kernel_ms_denormal']:.4f} ms; torch capturable foreach "
+            f"{row['torch_foreach_ms_normal']:.4f} / {row['torch_foreach_ms_denormal']:.4f} ms; fused=True "
+            f"(library) {row['library_fused_ms_normal']:.4f} / {row['library_fused_ms_denormal']:.4f} ms; "
+            f"plain {row['plain_ms_normal']:.4f} ms; kernel vs torch {vs_torch} ulps, vs plain "
+            f"{vs_plain:.3e}, vs fused {vs_fused:.3e} ok")
+        out[name] = row
+    log("[times] adam " + json.dumps(out))
+    return out
+
+
 BURN_IN_S = 3.0
 BENCH_ROUNDS, BENCH_CALLS = 1, 10  # the bench's timed loop, cut
 BENCH_TPSF_BATCH = 8192
@@ -2428,6 +2616,7 @@ def main(argv=None):
     errs = phase("kernel", phase_kernel, dev)
     bwd_errs = phase("kernel_bwd", phase_kernel_bwd, dev)
     prec_errs, prec_devs = phase("kernel_precision", phase_kernel_precision, dev)
+    adam_t = phase("adam", phase_adam, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         trainer, raw, ckpt, train_launches, grad_err, epoch_sps = phase("training", phase_training,
                                                                          work, dev)
@@ -2442,7 +2631,7 @@ def main(argv=None):
         dp_launches, dp_info = phase("data_parallel", phase_data_parallel, work, dev, sr_dir, raw,
                                      stsr_ckpt)
         parity = phase("sr_parity", phase_sr_parity, work, sr_dir)
-        stsr_capt, sr_capt_info = phase("sr_captured", phase_sr_captured, work, dev, sr_dir)
+        stsr_capt, sr_capt_launches, sr_capt_info = phase("sr_captured", phase_sr_captured, work, dev, sr_dir)
         remat = phase("remat", phase_remat, work, dev, sr_dir)
         cnn, cnn_info = phase("cnn", phase_cnn, work, dev, sr_dir)
         if args.keep_checkpoints:
@@ -2498,7 +2687,7 @@ def main(argv=None):
                "training_precision": prec_runs["eager"][1],
                "training_precision_captured": prec_runs["captured"][1],
                "generation": gen_launches, "generation_seqs": seqs_launches, **gen_prec_launches,
-               **bench_launches, "data_parallel": dp_launches}
+               **bench_launches, "data_parallel": dp_launches, "sr_captured": sr_capt_launches}
     main_t = times[MAIN_BATCH]
     record = {"kernels": [
         {
@@ -2585,6 +2774,26 @@ def main(argv=None):
             "deviation_from_f32_b8192": prec_devs[name],
         }
         for prec, name in BF16_KERNELS.items()
+    ] + [
+        {
+            "name": "adam_l2",
+            "route": "cuda",
+            "source": "tactilesr_torch/ops/cuda/adam_kernel.cu",
+            "replaces": "none: torch.optim.Adam(capturable=True) foreach in the captured step "
+                        "(JAX: optax adam_l2 inside the jitted step, tactilesr_tpu/runtime/optim.py)",
+            "launches": sum(p["adam_l2"] for p in by_path.values()),
+            "launches_by_path": {k: p["adam_l2"] for k, p in by_path.items()},
+            "max_abs_err": max(adam_t[n]["max_abs_vs_plain"] for n, _ in ADAM_SETS),
+            "ms_at": "the STSR's parameter set (124 tensors); the others under by_parameter_set",
+            "ms": adam_t["STSR"]["kernel_ms_normal"],
+            "plain_ms": adam_t["STSR"]["plain_ms_normal"],
+            "bound_ms": adam_t["STSR"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": adam_t["STSR"]["library_fused_ms_normal"],
+            "bound_share": adam_t["STSR"]["bound_share"],
+            "blocks_per_sm": adam_t["info"]["adam_l2"]["blocks_per_sm"],
+            "by_parameter_set": {n: adam_t[n] for n, _ in ADAM_SETS},
+        }
     ]}
     for k in record["kernels"]:
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path: {k['launches_by_path']}")

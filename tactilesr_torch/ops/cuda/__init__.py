@@ -28,6 +28,11 @@ source: the vector-Jacobian product of the physics in f32, recomputed from
 runtime sees them, and ``ptxas_info`` the registers, spills and static
 shared memory that ptxas printed when it compiled them.
 
+``adam.py`` holds the optimizer's kernel (``adam_kernel.cu``, AdamL2 over
+every parameter tensor in one launch), built by the same ``nvcc`` path
+into a library of its own, so that a run that trains no tPSFNet compiles
+only that file.
+
 ``tpsf_physics_fused`` makes the kernels trainable: a ``torch.autograd.Function``
 (the port of ``tactilesr_tpu/ops/pallas/tpsf_kernel.py::get_fused``, a
 ``jax.custom_vjp``) whose forward is the forward kernel of the chosen
@@ -77,9 +82,10 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset ("tpsf_physics_fused": the
-# autograd wrapper's forward launches, of any precision)
+# autograd wrapper's forward launches, of any precision; "adam_l2": the
+# optimizer kernel's, ``adam.py``)
 launch_counts = {"tpsf_physics": 0, "tpsf_physics_fused": 0, "tpsf_physics_bwd": 0,
-                 "tpsf_physics_bf16": 0, "tpsf_physics_bf16x3": 0}
+                 "tpsf_physics_bf16": 0, "tpsf_physics_bf16x3": 0, "adam_l2": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -114,31 +120,38 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
 
 
+def _build_library(source: str, defines: tuple = (), prefix: str = "libtpsf") -> tuple:
+    """Compile ``source`` with ``NVCC_FLAGS`` and the preprocessor
+    ``defines`` into ``BUILD_DIR/<prefix>_<hash>.so`` unless that library is
+    there already: (its path, nvcc's output).  Raises on failure."""
+    with open(source, "rb") as f:
+        src = f.read()
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    so_path = os.path.join(BUILD_DIR, f"{prefix}_{tag}.so")
+    log_path = so_path[:-3] + ".log"
+    if os.path.exists(so_path) and os.path.exists(log_path):
+        with open(log_path) as f:
+            return so_path, f.read()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, source], capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{log}")
+    with open(f"{log_path}.{os.getpid()}.tmp", "w") as f:
+        f.write(log)
+    os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)
+    os.replace(tmp, so_path)
+    return so_path, log
+
+
 def _compile(defines: tuple = (), source: str = _SOURCE) -> tuple:
     """Compile (if needed) and load the kernel library built from
     ``source`` (this package's ``tpsf_kernel.cu``, or another version of
     it) with the preprocessor ``defines``: (library, nvcc's output).
     Raises on failure."""
-    with open(source, "rb") as f:
-        src = f.read()
-    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    so_path = os.path.join(BUILD_DIR, f"libtpsf_{tag}.so")
-    log_path = so_path[:-3] + ".log"
-    if os.path.exists(so_path) and os.path.exists(log_path):
-        with open(log_path) as f:
-            log = f.read()
-    else:
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so_path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, source], capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{log}")
-        with open(f"{log_path}.{os.getpid()}.tmp", "w") as f:
-            f.write(log)
-        os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)
-        os.replace(tmp, so_path)
+    so_path, log = _build_library(source, defines)
     lib = ctypes.CDLL(so_path)
     lib.tpsf_physics_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -174,34 +187,38 @@ def build() -> ctypes.CDLL:
         return _lib
 
 
-def kernel_info(lib=None) -> dict:
+def kernel_info(lib=None, kernels: dict = KERNELS, prefix: str = "tpsf") -> dict:
     """Per kernel (by launch-count name), on the current CUDA device:
     resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
     at the launch's threads and dynamic shared memory), threads per block,
     dynamic and static shared bytes, registers and local (spill) bytes per
     thread.  Of ``lib`` (a library from ``_compile``), by default the built
-    one (building it if needed); raises on a CUDA error."""
+    one (building it if needed); raises on a CUDA error.  Another library
+    names its kernels in ``kernels`` and exports ``<prefix>_kernel_info``
+    and ``<prefix>_error_string`` (``adam.kernel_info``)."""
     lib = lib or build()
+    query, error = getattr(lib, f"{prefix}_kernel_info"), getattr(lib, f"{prefix}_error_string")
     info = {}
-    for which, name in enumerate(KERNELS.values()):
+    for which, name in enumerate(kernels.values()):
         out = (ctypes.c_int * 6)()
-        err = lib.tpsf_kernel_info(which, out)
+        err = query(which, out)
         if err != 0:
-            raise RuntimeError(f"tpsf_kernel_info({name}) failed: {lib.tpsf_error_string(err).decode()}")
+            raise RuntimeError(f"{prefix}_kernel_info({name}) failed: {error(err).decode()}")
         info[name] = dict(zip(("blocks_per_sm", "threads", "dynamic_smem", "static_smem",
                                "registers", "local_bytes"), out))
     return info
 
 
-def ptxas_info(log: str) -> dict:
+def ptxas_info(log: str, kernels: dict = KERNELS) -> dict:
     """Registers, spill bytes and static shared memory of each kernel from
-    the ``-Xptxas -v`` lines in ``log`` (``build_log``), by launch-count
-    name; a kernel ptxas did not report is missing."""
+    the ``-Xptxas -v`` lines in ``log`` (``build_log``; ``adam.build_log``
+    with ``kernels=adam.KERNELS``), by the names ``kernels`` gives the
+    source's kernels; a kernel ptxas did not report is missing."""
     info, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
-            name = next((v for k, v in KERNELS.items() if re.search(rf"\d{k}E", m.group(1))), None)
+            name = next((v for k, v in kernels.items() if re.search(rf"\d{k}E", m.group(1))), None)
             continue
         if name is None:
             continue

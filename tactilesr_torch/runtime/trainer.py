@@ -37,7 +37,8 @@ replay; an epoch ends with one fetch of its losses.  The first
 own steps (cuDNN picks its algorithms and Adam builds its state there),
 then the capture follows; a failed capture or replay raises.  Scan mode on
 CUDA makes the optimizer capturable (learning rate and Adam's step
-counters on the device); the eager loop keeps the host-side form.  On the CPU
+counters on the device, the update one kernel launch,
+``ops/cuda/adam.py``); the eager loop keeps the host-side form.  On the CPU
 the same step function runs uncaptured through the same buffers.  Only the
 epoch hooks fire in this mode, as in JAX.  While a torch profiler runs, an
 epoch records its phases as spans (``runtime/tracing.py``):
@@ -46,7 +47,8 @@ and the buffer copies), ``trainer.replays`` (the steps), ``trainer.fetch``
 (the losses) and ``trainer.log``.  ``trainer.replays`` carries, besides
 its eager and captured steps, ``launches``: what each counter registered
 with ``ops/graph.py::register_counters`` gained over the steps, replays
-included (the physics kernels' launches, for a tPSFNet).
+included (the physics kernels' launches, for a tPSFNet; the optimizer
+kernel's, ``adam_l2``, in every captured step).
 
 On CUDA the model's 4-D parameters are channels-last (``models/layers.py``
 ``memory_format``), so the SR networks' activations stay NHWC from conv to

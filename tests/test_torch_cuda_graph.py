@@ -12,9 +12,9 @@ This file imports neither jax nor the JAX package:
 Tolerances: losses rtol 1e-4 and BN statistics atol 1e-4 between the
 captured and the eager run, f32 with TF32 off (the card-vs-CPU rule of
 ``chip_smoke.py::phase_sr_parity``): the captured step runs capturable Adam
-(bias corrections on the device in f32) and the eager loop the host-side
-form (in double), and cuDNN's backward kernels may sum in another order
-from run to run.
+(the optimizer kernel, bias corrections on the device in f32) and the eager
+loop torch's host-side form (in double), and cuDNN's backward kernels may
+sum in another order from run to run.
 """
 
 import numpy as np
@@ -93,6 +93,7 @@ def test_captured_sr_epochs_match_eager(tmp_path, dev, kw):
     scan = _sr_trainer(tmp_path, "scan", dev, scan_epochs=True, **kw)
     scan.train(auto_resume=False)
     assert scan._graph is not None and scan.optimizer.capturable
+    assert scan._graph.per_replay["adam_l2"] == 1  # Adam is one kernel launch a step
     assert not eager.optimizer.capturable  # the eager loop keeps host-side Adam
     _assert_runs_close(scan, eager, 10)
 
@@ -130,18 +131,19 @@ def _tpsf_trainer(tmp_path, name, dev, physics_precision="highest", **kw):
 
 def test_captured_stage1_replays_the_physics_kernels(tmp_path, dev):
     """Stage 1 in scan mode: the graph holds the forward and backward
-    physics kernels, and each replay counts them, so over 10 steps the
-    backward kernel counts exactly 10 launches and each forward wrapper at
-    least 10 (the capture itself counts none).  Losses against the eager
-    run at rtol 1e-4 (f32 MLP)."""
+    physics kernels and the optimizer kernel, and each replay counts them,
+    so over 10 steps the backward kernel and the optimizer kernel count
+    exactly 10 launches and each forward wrapper at least 10 (the capture
+    itself counts none).  Losses against the eager run at rtol 1e-4 (f32
+    MLP)."""
     eager = _tpsf_trainer(tmp_path, "eager", dev)
     eager.train(auto_resume=False)
     tcuda.reset_launch_counts()
     scan = _tpsf_trainer(tmp_path, "scan", dev, scan_epochs=True)
     scan.train(auto_resume=False)
     counts = dict(tcuda.launch_counts)
-    assert scan._graph.per_replay["tpsf_physics_bwd"] == 1
-    assert counts["tpsf_physics_bwd"] == 10, counts
+    assert scan._graph.per_replay["tpsf_physics_bwd"] == scan._graph.per_replay["adam_l2"] == 1
+    assert counts["tpsf_physics_bwd"] == counts["adam_l2"] == 10, counts
     assert counts["tpsf_physics"] >= 10 and counts["tpsf_physics_fused"] >= 10, counts
     np.testing.assert_allclose(_losses(scan), _losses(eager), rtol=1e-4)
 
@@ -149,8 +151,8 @@ def test_captured_stage1_replays_the_physics_kernels(tmp_path, dev):
 @pytest.mark.parametrize("precision", ["default", "high"])
 def test_captured_stage1_replays_the_bf16_kernel(tmp_path, dev, precision):
     """``physics_precision: default|high`` in scan mode: the graph holds that
-    precision's forward kernel and the f32 backward, one of each per replay,
-    and the f32 forward kernel never launches.  Losses against the eager run
+    precision's forward kernel, the f32 backward and the optimizer kernel,
+    one of each per replay, and the f32 forward kernel never launches.  Losses against the eager run
     at that precision at rtol 1e-4."""
     name = {"default": "tpsf_physics_bf16", "high": "tpsf_physics_bf16x3"}[precision]
     eager = _tpsf_trainer(tmp_path, "eager", dev, precision)
@@ -160,7 +162,7 @@ def test_captured_stage1_replays_the_bf16_kernel(tmp_path, dev, precision):
     scan.train(auto_resume=False)
     counts = dict(tcuda.launch_counts)
     launched = {k: n for k, n in scan._graph.per_replay.items() if n}
-    assert launched == {"tpsf_physics_bwd": 1, name: 1, "tpsf_physics_fused": 1}, launched
+    assert launched == {"tpsf_physics_bwd": 1, name: 1, "tpsf_physics_fused": 1, "adam_l2": 1}, launched
     assert counts["tpsf_physics_bwd"] == 10 and counts[name] >= 10, counts
     assert counts["tpsf_physics"] == 0, counts
     np.testing.assert_allclose(_losses(scan), _losses(eager), rtol=1e-4)
